@@ -19,8 +19,9 @@
    the bounds are finite;
 4. holds the block against its plain version at the main path's shapes
    (from the engine's last prox-on state), times it there (kernel, plain
-   version, torch.matmul products) and prints one {"kernels": [...]}
-   line.
+   version, torch.matmul products with and without the residual tail's
+   two), breaks the kernel's time down per product against streaming
+   each product's matrix once, and prints one {"kernels": [...]} line.
 The last line is {"ok": true, "device": {...}}; any failed check raises.
 """
 
@@ -347,7 +348,7 @@ def main_path(dev):
     st0 = ph._qp_states[False]
     pri0 = float(st0.pri_rel.max())
     solves = 1 + len(it_log.rows)
-    expected = solves * (3 * SLICE_BUDGET + 3)
+    expected = solves * admm_block.admm_block_launches(SLICE_BUDGET, False)
     W = ph.W
     w_sum = float((ph.prob @ W).abs().max())
     w_scale = max(1.0, float(W.abs().max()))
@@ -389,6 +390,7 @@ def time_block(ph, steps, reps):
     prox-on state: kernel vs plain, the timings and the bounds."""
     import torch
     from mpisppy_tpu_torch.ops.kernels import admm_block
+    from mpisppy_tpu_torch.ops.qp_solver import LInv
     factors, data = ph._get_factors(True)
     st = ph._qp_states[True]
     q, _, _ = _assembled_q(ph, data)
@@ -417,13 +419,32 @@ def time_block(ph, steps, reps):
             torch.matmul(v, F)
             torch.matmul(v, A.T)
 
+    def library_with_tail():
+        # the same with the residual tail's two products (x·Aᵀ, yA·A),
+        # which the block also computes once per call
+        library()
+        torch.matmul(v, A.T)
+        torch.matmul(w, A)
+
+    def kern_l_inv():
+        # the L⁻¹-pair operator's products at the same shapes; F stands in
+        # for L⁻¹ (the kernel's time does not depend on the values)
+        admm_block.fused_admm_block(factors, data, q,
+                                    st._replace(L=LInv(F, F)),
+                                    n_steps=steps, sigma=factors.sigma,
+                                    scen_tile=0)
+
     before = admm_block.LAUNCHES
-    t = {"plain": [], "kernel": [], "library": []}
+    t = {"plain": [], "kernel": [], "library": [], "library_with_tail": []}
     for name, fn in (("plain", plain), ("kernel", kern),
                      ("kernel", kern), ("plain", plain),
-                     ("library", library)):
+                     ("library", library),
+                     ("library_with_tail", library_with_tail)):
         t[name].append(cuda_ms(fn, reps))
     breakdown = kernel_breakdown(kern)
+    products = product_table(breakdown, kernel_breakdown(kern_l_inv), S,
+                             m, n, steps)
+    library_breakdown = kernel_breakdown(library_with_tail)
     admm_block.LAUNCHES = before   # timing launches are not the path's
     ms = sum(t["kernel"]) / len(t["kernel"])
     plain_ms = sum(t["plain"]) / len(t["plain"])
@@ -445,11 +466,70 @@ def time_block(ph, steps, reps):
         / HBM_BYTES_PER_S * 1e3
     log(json.dumps({"phase": "block_timing", "steps_per_call": steps,
                     "measured_ms": t, "device_ms_by_kernel": breakdown,
-                    "computed_one_pass_bound_ms": stream_ms}))
+                    "computed_one_pass_bound_ms": stream_ms,
+                    "products": products,
+                    "products_note": "the block's kernels launch with "
+                    "programmatic dependent launch, so a kernel's span "
+                    "starts while its predecessor drains: a sum kernel's "
+                    "span includes that wait",
+                    "device_ms_total": sum(v["ms"] for v in
+                                           breakdown.values()),
+                    "library_device_ms_by_kernel": library_breakdown,
+                    "library_with_tail_device_ms_total": sum(
+                        v["ms"] for v in library_breakdown.values())}))
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "library_ms": lib_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "ms_per_step": ms / steps}
+
+
+# kernel name -> (product, the matrix it streams, its reduction axis)
+# in csrc/admm_block.cu; the *_sum kernels add a product's partials
+PRODUCTS = {"k1_rhs": ("K1 w·A", "A", "A_col"),
+            "linv1": ("LINV1 rhs·Fᵀ", "F", "F_row"),
+            "k2_xupd": ("K2 rhs·F", "F", "F_col"),
+            "k3_za": ("K3 x̃·Aᵀ", "A", "A_row"),
+            "pri_rows": ("tail x·Aᵀ", "A", "A_row"),
+            "dua_cols": ("tail yA·A", "A", "A_col")}
+
+
+def product_table(breakdown, breakdown_l_inv, S, m, n, steps):
+    """Per product of the block: device ms per step (per call for the
+    tail) from the profiler, beside the computed time to stream its
+    matrix once at the data-sheet bandwidth; for each sum kernel, the
+    computed time to read its partials once. LINV1 comes from the call
+    with the L⁻¹-pair operator; the rest from the M⁻¹ call."""
+    import re
+    from mpisppy_tpu_torch.ops.kernels import admm_block
+    sched = admm_block.block_schedule(m, n)
+    mat = {"A": 8 * m * n, "F": 8 * n * n}
+    out_len = {"A_col": n, "F_col": n, "F_row": n, "A_row": m}
+    by_name = {}
+    for src, bd in (("m_inv", breakdown), ("l_inv", breakdown_l_inv)):
+        for key, v in bd.items():
+            hit = re.search(r"(\w+?)(_sum)?(?:<\d+>)?\(", key)
+            if hit and hit.group(1) in PRODUCTS:
+                by_name.setdefault((src, hit.group(1) + (hit.group(2) or "")),
+                                   v)
+    rows = {}
+    for name, (label, matrix, axis) in PRODUCTS.items():
+        src = "l_inv" if name == "linv1" else "m_inv"
+        per = 1 if name in ("pri_rows", "dua_cols") else steps
+        unit = "call" if per == 1 else "step"
+        parts = sched[axis][0]
+        for kname, bytes_once in (
+                (name, mat[matrix]),
+                (name + "_sum", 8 * (parts + 1) * S * out_len[axis])):
+            got = by_name.get((src, kname))
+            rows[kname] = {
+                "product": label + (" partial sums" if kname != name
+                                    else ""),
+                "parts": parts,
+                f"device_ms_per_{unit}": (got["ms"] / per if got else None),
+                f"one_pass_ms_per_{unit}":
+                    bytes_once / HBM_BYTES_PER_S * 1e3,
+                "calls": got["calls"] if got else 0}
+    return rows
 
 
 def kernel_breakdown(fn):

@@ -18,6 +18,12 @@ Scenario tiling: scenario rows are independent through the whole block
 are row-local), so the scenario axis may be cut into ``scen_tile``-row
 tiles, each its own call; the kernel's per-row summation order does
 not depend on the tile, so tiled and untiled results are bit-equal.
+
+Tile schedule (``block_schedule``): how far the kernel splits each
+product's reduction axis. It is computed here from the matrix shape
+(m, n) alone, never from S, since the split fixes the order of
+summation: a schedule that followed S would break the bit-equality of
+tiled and untiled calls.
 """
 
 from __future__ import annotations
@@ -28,13 +34,29 @@ import torch
 
 from ..qp_solver import LInv, _scaled_problem
 
-__all__ = ["LAUNCHES", "SCEN_TILE_TARGET", "admm_block_plain",
-           "fused_admm_block", "pick_scen_tile", "scope_supported"]
+__all__ = ["LAUNCHES", "SCEN_TILE_TARGET", "admm_block_launches",
+           "admm_block_plain", "block_schedule", "fused_admm_block",
+           "launch_plan", "pick_scen_tile", "scope_supported"]
 
-# CUDA kernel launches made by fused_admm_block (3 per step with an
-# M⁻¹ operator, 4 with an L⁻¹ pair, plus 3 for the residual tail per
+# CUDA kernel launches made by fused_admm_block (admm_block_launches per
 # call); the plain CPU path launches nothing and adds nothing
 LAUNCHES = 0
+
+# Tile geometry of csrc/admm_block.cu, which refuses a schedule planned
+# for another: the col orientation (y = v·B) gives a CTA COL_TILE output
+# columns and streams COL_STAGE matrix rows per ring stage; the row
+# orientation (y = v·Bᵀ) ROW_TILE output rows and ROW_STAGE columns; the
+# sum kernels take SUM_TILE elements per CTA.
+COL_TILE, COL_STAGE = 256, 16
+ROW_TILE, ROW_STAGE = 128, 32
+SUM_TILE = 256
+# the split targets an H100 SXM's 132 SMs (one product CTA each); a
+# constant, not a device query, so the summation order is a function of
+# the shape alone
+SPLIT_SMS = 132
+MAX_SPLIT = 32          # bounds the partial-sum scratch, P x S x L
+MIN_PART_STAGES = 2
+RAMP_STAGES = 2         # a CTA's ring fill, in stages of streaming time
 
 # rows per scenario tile when the caller does not choose
 SCEN_TILE_TARGET = 128
@@ -43,10 +65,80 @@ SCEN_TILE_TARGET = 128
 _IN = ("A", "F", "Ps", "g", "q_s", "l_s", "u_s", "lb_s", "ub_s", "rA",
        "rB", "Einv", "Ebinv", "Dinv_c", "D")
 _ITER = ("x", "yA", "yB", "zA", "zB")
+# scratch and outputs after them
+_SCRATCH = ("rhs", "xt", "ut", "w", "part", "pri", "dua", "part_rows",
+            "part_cpri", "part_cdua")
+# admm_block_run's code for a refused schedule (csrc: ERR_SCHEDULE)
+_ERR_SCHEDULE = 100000
 # scalings that may be shared (rank 1) or per scenario (rank 2), with
 # the axis length they run over
 _SCALINGS = (("Ps", "n"), ("g", "n"), ("rA", "m"), ("rB", "n"),
              ("Einv", "m"), ("Ebinv", "n"), ("Dinv_c", "n"), ("D", "n"))
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _split(tiles: int, stages: int) -> tuple[int, int]:
+    """(parts, stages per part) for a product of ``tiles`` output tiles
+    whose reduction axis is ``stages`` ring stages long: the split with
+    the least modelled time, waves of SPLIT_SMS CTAs x (stages per part
+    + the ring fill); on a tie the fewer parts. Every part is non-empty
+    and only the last may be shorter."""
+    best = None
+    for parts in range(1, min(MAX_SPLIT, max(1, stages // MIN_PART_STAGES))
+                       + 1):
+        per = _ceil(stages, parts)
+        used = _ceil(stages, per)
+        cost = _ceil(tiles * used, SPLIT_SMS) * (per + RAMP_STAGES)
+        if best is None or cost < best[0]:
+            best = (cost, used, per)
+    return best[1], best[2]
+
+
+def _stages(m: int, n: int) -> dict:
+    """Per (matrix, orientation) product of A (m, n) and F (n, n):
+    (output tiles, ring stages along the reduction axis). A_col serves
+    K1 (w·A) and the dual tail (yA·A), F_col K2, F_row the first L⁻¹
+    product (rhs·Fᵀ), A_row K3 (x̃·Aᵀ) and the primal tail (x·Aᵀ)."""
+    col_tiles = _ceil(n, COL_TILE)
+    return {"A_col": (col_tiles, _ceil(m, COL_STAGE)),
+            "F_col": (col_tiles, _ceil(n, COL_STAGE)),
+            "F_row": (_ceil(n, ROW_TILE), _ceil(n, ROW_STAGE)),
+            "A_row": (_ceil(m, ROW_TILE), _ceil(n, ROW_STAGE))}
+
+
+def block_schedule(m: int, n: int) -> dict:
+    """The kernel's split of each (matrix, orientation) product, from
+    the shape of A (m, n) alone: {"A_col", "F_col", "F_row", "A_row"}
+    -> (parts, stages per part)."""
+    return {key: _split(tiles, stages)
+            for key, (tiles, stages) in _stages(m, n).items()}
+
+
+def launch_plan(S: int, m: int, n: int, l_inv_pair: bool) -> dict:
+    """What one kernel call needs for S scenario rows: the schedule
+    (shape-only), the C entry point's ``sched`` ints and the scratch
+    lengths in doubles."""
+    sched = block_schedule(m, n)
+    parts = [sched["A_col"][0] * n, sched["F_col"][0] * n,
+             sched["A_row"][0] * m]
+    if l_inv_pair:
+        parts.append(sched["F_row"][0] * n)
+    ints = [COL_TILE, COL_STAGE, ROW_TILE, ROW_STAGE, SUM_TILE]
+    for key in ("A_col", "F_col", "F_row", "A_row"):
+        ints += list(sched[key])
+    return {"schedule": sched, "sched_ints": ints,
+            "part": S * max(parts), "row_tiles": _ceil(m, SUM_TILE),
+            "col_tiles": _ceil(n, SUM_TILE)}
+
+
+def admm_block_launches(n_steps: int, l_inv_pair: bool) -> int:
+    """Kernels one CUDA call launches: the w prologue; per step a split
+    product and its sum kernel for K1, K2 and K3 (and LINV1 with an L⁻¹
+    pair); the tail's two products with their sums and the finalize."""
+    return 1 + int(n_steps) * (8 if l_inv_pair else 6) + 5
 
 
 def pick_scen_tile(S: int, target: int = SCEN_TILE_TARGET) -> int:
@@ -146,40 +238,41 @@ def _launch(ops, sigma, n_steps, alpha, l_inv_pair):
         _check(name, ops[name], (S, m), dev)
 
     out = {k: ops[k].clone() for k in _ITER}
-    row_t, col_t = ctypes.c_int(), ctypes.c_int()
-    lib.admm_block_tiles.argtypes = [ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_void_p, ctypes.c_void_p]
-    lib.admm_block_tiles.restype = None
-    lib.admm_block_tiles(m, n, ctypes.byref(row_t), ctypes.byref(col_t))
+    plan = launch_plan(S, m, n, l_inv_pair)
     kw = dict(dtype=torch.float64, device=dev)
     scratch = {"rhs": torch.empty((S, n), **kw),
                "xt": torch.empty((S, n), **kw),
                "ut": torch.empty((S, n) if l_inv_pair else (1,), **kw),
+               "w": torch.empty((S, m), **kw),
+               "part": torch.empty((plan["part"],), **kw),
                "pri": torch.empty((S,), **kw),
                "dua": torch.empty((S,), **kw),
-               "part_rows": torch.empty((S, row_t.value), **kw),
-               "part_cpri": torch.empty((S, col_t.value), **kw),
-               "part_cdua": torch.empty((S, col_t.value), **kw)}
+               "part_rows": torch.empty((S, plan["row_tiles"]), **kw),
+               "part_cpri": torch.empty((S, plan["col_tiles"]), **kw),
+               "part_cdua": torch.empty((S, plan["col_tiles"]), **kw)}
     ptr_list = [ops[k].data_ptr() for k in _IN] \
         + [out[k].data_ptr() for k in _ITER] \
-        + [scratch[k].data_ptr() for k in ("rhs", "xt", "ut", "pri", "dua",
-                                           "part_rows", "part_cpri",
-                                           "part_cdua")]
+        + [scratch[k].data_ptr() for k in _SCRATCH]
     ptrs = (ctypes.c_uint64 * len(ptr_list))(*ptr_list)
     c_strides = (ctypes.c_longlong * len(strides))(*strides)
     c_dims = (ctypes.c_int * 3)(S, m, n)
     c_scal = (ctypes.c_double * 2)(float(sigma), float(alpha))
+    c_sched = (ctypes.c_int * len(plan["sched_ints"]))(*plan["sched_ints"])
     launches = ctypes.c_int(0)
     fn = lib.admm_block_run
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_void_p,
+                                           ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(ptrs, c_strides, c_dims, c_scal, int(n_steps),
+    err = fn(ptrs, c_strides, c_dims, c_scal, c_sched, int(n_steps),
              int(bool(l_inv_pair)), ctypes.c_void_p(stream),
              ctypes.byref(launches))
     LAUNCHES += launches.value
+    if err == _ERR_SCHEDULE:
+        raise RuntimeError("admm_block: the kernel refused the tile "
+                           f"schedule {plan['sched_ints']} for m={m}, "
+                           f"n={n}")
     if err != 0:
         raise RuntimeError(f"admm_block kernel launch failed: CUDA error "
                            f"{err}")

@@ -83,6 +83,27 @@ def test_tiled_equals_untiled():
                                    atol=1e-12)
 
 
+@pytest.mark.parametrize("m,n", [(26016, 13056), (300, 200), (301, 199),
+                                 (1000, 600), (6, 4)])
+def test_tile_schedule_depends_on_shape_only(m, n):
+    """The kernel's split of each product (which fixes its order of
+    summation) is the same for S = 1, 10 and 256 scenario rows, so a
+    scenario-tiled call sums as an untiled one does; every part of a
+    split is non-empty and within the scratch bound."""
+    plans = [admm_block.launch_plan(S, m, n, l_inv)
+             for S in (1, 10, 256) for l_inv in (False, True)]
+    for plan in plans[1:]:
+        assert plan["schedule"] == plans[0]["schedule"]
+        assert plan["sched_ints"] == plans[0]["sched_ints"]
+    stages = admm_block._stages(m, n)
+    for key, (parts, per) in plans[0]["schedule"].items():
+        assert 1 <= parts <= admm_block.MAX_SPLIT
+        assert (parts - 1) * per < stages[key][1] <= parts * per
+    # only the scratch follows S
+    assert plans[2]["part"] == 10 * plans[0]["part"]
+    assert plans[4]["part"] == 256 * plans[0]["part"]
+
+
 def test_block_matches_reference_solver():
     """The block iterates the problem _solve_impl iterates: 20 fixed-rho
     steps agree with qp_solve's (adaptive_rho off, one check)."""

@@ -58,9 +58,10 @@ def test_kernel_matches_plain(cuda, l_inv, S):
     before = admm_block.LAUNCHES
     got = admm_block.fused_admm_block(f, d, q, st, n_steps=20, scen_tile=0)
     torch.cuda.synchronize()
-    # one launch per product and step, however many scenario groups
-    # (grid.y) the rows fill, and three for the residual tail
-    assert admm_block.LAUNCHES - before == (4 if l_inv else 3) * 20 + 3
+    # the count the library exports: it does not depend on how many
+    # scenario groups (grid.y) the rows fill
+    assert admm_block.LAUNCHES - before \
+        == admm_block.admm_block_launches(20, l_inv)
     g, l_s, u_s, lb_s, ub_s, csx, q_s = T._scaled_problem(f, d, q)
     F = st.L.inv if l_inv else st.L
     ref = admm_block.admm_block_plain(
@@ -72,16 +73,11 @@ def test_kernel_matches_plain(cuda, l_inv, S):
         assert float((b - a).abs().max()) <= 1e-9 * scale
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("l_inv", [False, True])
-def test_kernel_matches_plain_multi_tile(cuda, l_inv):
-    """Shapes that run every tile loop of the kernel more than once,
-    with ragged last tiles (m = 1000, n = 600). The bar adds four times
-    the spread between two summation orders of the plain version
+def _against_plain_two_orders(f, d, q, st, l_inv):
+    """20 kernel steps against the plain version; the bar adds four
+    times the spread between two summation orders of the plain version
     (batched, and one scenario row at a time)."""
-    f, d, q, st = _tiny(10, cuda, m=1000, n=600, density=0.01)
-    if l_inv:
-        st = _l_inv(f, st)
+    S = st.x.shape[0]
     got = admm_block.fused_admm_block(f, d, q, st, n_steps=20, scen_tile=0)
     g, l_s, u_s, lb_s, ub_s, csx, q_s = T._scaled_problem(f, d, q)
     F = st.L.inv if l_inv else st.L
@@ -93,12 +89,42 @@ def test_kernel_matches_plain_multi_tile(cuda, l_inv):
     per = {4, 5, 6, 7, 8, 15, 16, 17, 18, 19}
     rows = [admm_block.admm_block_plain(
         *[o[s:s + 1] if i in per else o for i, o in enumerate(ops)], **kw)
-        for s in range(10)]
+        for s in range(S)]
     alt = [torch.cat(p) for p in zip(*rows)]
     for a, b, c in zip(ref, got, alt):
+        assert bool(torch.isfinite(b).all())
         tol = 1e-9 * max(1.0, float(a.abs().max())) \
             + 4.0 * float((c - a).abs().max())
         assert float((b - a).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l_inv", [False, True])
+def test_kernel_matches_plain_multi_tile(cuda, l_inv):
+    """Shapes that run every tile loop of the kernel more than once,
+    with ragged last tiles (m = 1000, n = 600)."""
+    f, d, q, st = _tiny(10, cuda, m=1000, n=600, density=0.01)
+    if l_inv:
+        st = _l_inv(f, st)
+    _against_plain_two_orders(f, d, q, st, l_inv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l_inv", [False, True])
+@pytest.mark.parametrize("S", [1, 10, 16, 17])
+@pytest.mark.parametrize("m,n", [(300, 200), (301, 199)])
+def test_kernel_matches_plain_partial_tiles(cuda, m, n, S, l_inv):
+    """Partial tiles on both axes of A and F and a split reduction axis
+    whose last part and last stage are short (block_schedule splits
+    every product at these shapes); n = 199 takes the 8-byte copies
+    (rows not 16-byte aligned), S = 17 a partial second scenario
+    group."""
+    sched = admm_block.block_schedule(m, n)
+    assert all(parts > 1 for parts, _ in sched.values())
+    f, d, q, st = _tiny(S, cuda, m=m, n=n)
+    if l_inv:
+        st = _l_inv(f, st)
+    _against_plain_two_orders(f, d, q, st, l_inv)
 
 
 @pytest.mark.cuda
@@ -106,6 +132,17 @@ def test_tiled_is_bit_equal_to_untiled(cuda):
     f, d, q, st = _tiny(48, cuda)
     a = admm_block.fused_admm_block(f, d, q, st, n_steps=20, scen_tile=0)
     b = admm_block.fused_admm_block(f, d, q, st, n_steps=20, scen_tile=16)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.cuda
+def test_tiled_is_bit_equal_to_untiled_two_groups_per_tile(cuda):
+    """32-row scenario tiles hold two 16-row scenario groups each, and
+    the shapes split every product's reduction axis."""
+    f, d, q, st = _tiny(64, cuda, m=300, n=200)
+    a = admm_block.fused_admm_block(f, d, q, st, n_steps=20, scen_tile=0)
+    b = admm_block.fused_admm_block(f, d, q, st, n_steps=20, scen_tile=32)
     for u, v in zip(a, b):
         assert torch.equal(u, v)
 
