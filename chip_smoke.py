@@ -20,13 +20,27 @@
 4. holds the block against its plain version at the main path's shapes
    (from the engine's last prox-on state), times it there (kernel, plain
    version, torch.matmul products with and without the residual tail's
-   two), breaks the kernel's time down per product against streaming
-   each product's matrix once, and prints one {"kernels": [...]} line.
+   two) and breaks the kernel's time down per product against streaming
+   each product's matrix once;
+5. runs the scenario-chunked PH loop on the same instance, S = 40 in
+   chunks of 16 (16, 16 and a padded 8), with the hospital off, and
+   checks the launch count (one block call per chunk and solve), no
+   demotion, one gate sync per iteration, iter-0 feasibility,
+   sum_s p_s W_s = 0, finite results, holds the block against its plain
+   version at this path's 16-row shapes (the first chunk and the padded
+   last one, from the engine's prox-on chunk states), and checks that
+   x̄ and W after one prox-on iteration equal an unchunked run's on the
+   same batch to 1e-9;
+6. times one 20-step block call at full width for S = 16, 48 and 128
+   rows tiled from the chunked batch (``block_scaling``), and prints one
+   {"kernels": [...]} line whose launches count phases 3 and 5 and
+   whose max_abs_err is the largest of phases 4 and 5.
 The last line is {"ok": true, "device": {...}}; any failed check raises.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -46,6 +60,22 @@ SLICE_INSTANCE = dict(num_gens=90, num_hours=48, min_up_down=True,
                       startup_shutdown_ramps=True, relax_integrality=False)
 SLICE_SCENARIOS = 10
 SLICE_BUDGET = 1500
+# the main path's PH options (a prox-on solve: the whole budget at fixed
+# rho in the block, then the finisher without the polish)
+PH_OPTS = {"defaultPHrho": 100.0, "PHIterLimit": 3, "convthresh": -1.0,
+           "subproblem_kernel_mode": "fused",
+           "subproblem_kernel_backend": "cuda",
+           "subproblem_max_iter": SLICE_BUDGET,
+           "subproblem_eps": 1e-5, "subproblem_eps_hot": 1e-4,
+           "subproblem_eps_dua_hot": 1e-2,
+           "subproblem_polish_hot": False,
+           "subproblem_polish_chunk": 2}
+# the chunked path: S scenarios in chunks of CHUNK rows (the JAX
+# package's bench runs 1024 in chunks of 128; cut for the run's time)
+CHUNK_SCENARIOS = 40
+CHUNK = 16
+# rows per call timed by block_scaling (128: the JAX bench's chunk)
+SCALING_ROWS = (16, 48, 128)
 
 # kernel vs plain (see compare): the multiple of the plain version's
 # own summation-order spread that the bar allows, and the multiple of
@@ -314,15 +344,7 @@ def main_path(dev):
                         creator_kwargs=SLICE_INSTANCE,
                         vector_patch=uc.scenario_vector_patch)
     t_batch = time.perf_counter() - t0
-    opts = {"defaultPHrho": 100.0, "PHIterLimit": 3,
-            "convthresh": -1.0,
-            "subproblem_kernel_mode": "fused",
-            "subproblem_kernel_backend": "cuda",
-            "subproblem_max_iter": SLICE_BUDGET,
-            "subproblem_eps": 1e-5, "subproblem_eps_hot": 1e-4,
-            "subproblem_eps_dua_hot": 1e-2,
-            "subproblem_polish_hot": False,
-            "subproblem_polish_chunk": 2}
+    opts = dict(PH_OPTS)
     it_log = IterLog()
     on_card = torch.device(dev).type == "cuda"
     if on_card:
@@ -558,6 +580,203 @@ def _assembled_q(ph, data):
                         w_on=True, prox_on=True)
 
 
+class Snapshot(IterLog):
+    """IterLog that also keeps x̄ and W after prox-on iteration ``at``."""
+
+    def __init__(self, at=1):
+        super().__init__()
+        self.at = at
+        self.xbar = self.W = None
+
+    def miditer(self, ph):
+        super().miditer(ph)
+        if ph._iter == self.at:
+            self.xbar, self.W = ph.xbar.clone(), ph.W.clone()
+
+
+def _max_rel_diff(ref, got):
+    """max |got - ref| / max(1, max |ref|)."""
+    return float((got - ref).abs().max()) / max(1.0,
+                                                float(ref.abs().max()))
+
+
+def chunked_path(dev):
+    """Phase 5: the scenario-chunked PH loop on the card. Returns the
+    operands block_scaling tiles, the block launches of its run, the
+    block's largest difference from its plain version at this path's
+    shapes and the list of failed checks; prints one JSON line."""
+    import numpy as np
+    import torch
+    from mpisppy_tpu_torch import obs
+    from mpisppy_tpu_torch.core.ph import PH
+    from mpisppy_tpu_torch.ir.batch import build_batch
+    from mpisppy_tpu_torch.models import uc
+    from mpisppy_tpu_torch.ops.kernels import admm_block
+
+    t0 = time.perf_counter()
+    batch = build_batch(uc.scenario_creator, uc.make_tree(CHUNK_SCENARIOS),
+                        creator_kwargs=SLICE_INSTANCE,
+                        vector_patch=uc.scenario_vector_patch)
+    t_batch = time.perf_counter() - t0
+    opts = {**PH_OPTS, "subproblem_chunk": CHUNK,
+            "subproblem_hospital": False}
+    on_card = torch.device(dev).type == "cuda"
+    snap = Snapshot(at=1)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    ph = PH(batch, opts, device=dev, extensions=snap)
+    obs.configure()
+    admm_block.LAUNCHES = 0
+    t0 = snap.t0 = time.perf_counter()
+    conv, eobj, tbound = ph.ph_main()
+    _sync()
+    t_main = time.perf_counter() - t0
+    launches = admm_block.LAUNCHES
+    counters = obs.counters_snapshot()
+    demotions = obs.events("kernel.cuda_demotion")
+    retries = [e[1] for e in obs.events("ph.chunk_retry")]
+    obs.shutdown()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+
+    n_chunks = len(ph._chunk_index(CHUNK))
+    solves = 1 + len(snap.rows)
+    expected = n_chunks * solves \
+        * admm_block.admm_block_launches(SLICE_BUDGET, False)
+    pri0 = float(ph._qp_states[False].pri_rel.max())
+    W = ph.W
+    w_sum = float((ph.prob @ W).abs().max())
+    w_scale = max(1.0, float(W.abs().max()))
+    timing = {str(k): ph.phase_timing(k) for k in (False, True)}
+    blacklisted = {"chunks": {str(k): sorted(v) for k, v in
+                              ph._chunk_no_retry.items()},
+                   "hospital": {str(k): sorted(v) for k, v in
+                                ph._hospital_no_retry.items()}}
+    failures = []
+    if pri0 >= 1e-3:
+        failures.append(f"iter-0 max pri_rel {pri0:.3e} is not below 1e-3")
+    if launches != expected or launches == 0:
+        failures.append(f"admm_block launched {launches} kernels on the "
+                        f"chunked path, expected {expected} ({n_chunks} "
+                        f"chunks x {solves} solves)")
+    if demotions:
+        failures.append(f"kernel demotion booked: {demotions}")
+    if any(p.backend != "cuda" for p in ph._kernel_plans.values()):
+        failures.append("a kernel plan of the chunked path is not cuda")
+    for k, t in timing.items():
+        if t["gate_d2h_syncs_per_call"] != 1.0:
+            failures.append(f"mode {k}: {t['gate_d2h_syncs_per_call']} "
+                            "gate syncs per call, expected 1")
+    if w_sum > 1e-8 * w_scale:
+        failures.append(f"sum_s p_s W_s = {w_sum:.3e} is not 0")
+    finite = [tbound, eobj, conv] + [r["conv"] for r in snap.rows]
+    if not all(np.isfinite(v) for v in finite) \
+            or not bool(torch.isfinite(ph.xbar).all()):
+        failures.append(f"non-finite bound, conv or x̄: {finite}")
+    # the kernel against its plain version at this path's shapes: the
+    # first chunk and the padded last one, from the prox-on chunk states
+    states = ph._chunk_states[True]
+    scaling_ops = _scaling_operands(ph, states, 0)
+    err = 0.0
+    for ops, label in ((scaling_ops, "chunked_path_shapes"),
+                       (_scaling_operands(ph, states, n_chunks - 1),
+                        "chunked_path_shapes_padded")):
+        e, f = compare(*ops, 20, label)
+        err, failures = max(err, e), failures + f
+    # the same batch unchunked, iter 0 and one prox-on iteration
+    xbar1, W1 = snap.xbar, snap.W
+    del ph, states
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    ref = PH(batch, {**PH_OPTS, "PHIterLimit": 1}, device=dev)
+    ref.ph_main()
+    _sync()
+    admm_block.LAUNCHES = launches   # the comparison's are not the path's
+    d_xbar = _max_rel_diff(ref.xbar, xbar1)
+    d_W = _max_rel_diff(ref.W, W1)
+    if not (d_xbar <= 1e-9 and d_W <= 1e-9):
+        failures.append(f"chunked differs from unchunked after one "
+                        f"prox-on iteration: x̄ {d_xbar:.3e}, W {d_W:.3e} "
+                        "(bar 1e-9 x max(1, |.|))")
+    del ref
+    gc.collect()
+    rows = snap.rows
+    log(json.dumps({
+        "phase": "chunked_path", "S": CHUNK_SCENARIOS, "chunk": CHUNK,
+        "chunks": n_chunks, "n": batch.n, "m": batch.m,
+        "batch_build_s": t_batch, "ph_main_s": t_main,
+        "iterations": rows,
+        "ph_s_per_iteration": [r["seconds"] for r in rows],
+        "phase_seconds": {k: t["seconds_per_call"] for k, t in
+                          timing.items()},
+        "occupancy": {k: t["occupancy"] for k, t in timing.items()},
+        "gate_d2h_syncs_per_call": {k: t["gate_d2h_syncs_per_call"]
+                                    for k, t in timing.items()},
+        "iter0_max_pri_rel": pri0, "trivial_bound": tbound,
+        "eobjective": eobj, "conv": conv,
+        "retries": len(retries), "retry_events": retries,
+        "blacklisted": blacklisted,
+        "gate_syncs_total": counters.get("ph.gate_syncs"),
+        "launches": launches, "expected_launches": expected,
+        "demotions": len(demotions), "sum_p_W_max": w_sum,
+        "peak_gb": peak_gb,
+        "unchunked_max_rel_diff": {"xbar": d_xbar, "W": d_W}}))
+    return scaling_ops, launches, err, failures
+
+
+def _scaling_operands(ph, states, ci):
+    """(factors, data, q, state) of the engine's prox-on chunk ``ci``;
+    those of chunk 0 are the operands block_scaling tiles."""
+    from mpisppy_tpu_torch.core.ph import _ph_assemble
+    factors, data = ph._get_factors(True)
+    idx, _ = ph._chunk_index(CHUNK)[ci]
+    d = data._replace(l=data.l[idx], u=data.u[idx], lb=data.lb[idx],
+                      ub=data.ub[idx])
+    q, bl, bu = _ph_assemble(d, ph.c[idx], ph.W[idx], ph.xbar[idx],
+                             ph.rho[idx], ph.nonant_idx,
+                             ph._fixed_mask[idx], ph._fixed_vals[idx],
+                             None, w_on=True, prox_on=True)
+    return factors, d._replace(lb=bl, ub=bu), q, states[ci]
+
+
+def block_scaling(ops, steps=20, reps=2):
+    """Phase 6: one ``steps``-step block call at full width for each row
+    count in SCALING_ROWS, the chunk's rows tiled to it. Prints ms per
+    step and per scenario-step beside the groups on grid.y and the
+    one-pass streaming time of groups x (2A + F) per step."""
+    import torch
+    from mpisppy_tpu_torch.ops.kernels import admm_block
+    factors, d, q, st = ops
+    S0 = st.x.shape[0]
+    m, n = factors.A_s.shape
+    before = admm_block.LAUNCHES
+    rows = []
+    for S in SCALING_ROWS:
+        rep = -(-S // S0)
+
+        def tile(t, S=S, rep=rep):
+            return t.repeat((rep,) + (1,) * (t.ndim - 1))[:S].contiguous()
+
+        d_s = d._replace(l=tile(d.l), u=tile(d.u), lb=tile(d.lb),
+                         ub=tile(d.ub))
+        st_s = st._replace(x=tile(st.x), yA=tile(st.yA), yB=tile(st.yB),
+                           zA=tile(st.zA), zB=tile(st.zB))
+        q_s = tile(q)
+        ms = cuda_ms(lambda: admm_block.fused_admm_block(
+            factors, d_s, q_s, st_s, n_steps=steps, sigma=factors.sigma,
+            scen_tile=0), reps)
+        groups = -(-S // admm_block.SCEN_GROUP)
+        stream_ms = groups * 8 * (2 * m * n + n * n) \
+            / HBM_BYTES_PER_S * 1e3
+        rows.append({"S": S, "ms_per_call": ms, "ms_per_step": ms / steps,
+                     "ms_per_scenario_step": ms / steps / S,
+                     "groups": groups,
+                     "streaming_ms_per_step": stream_ms})
+    admm_block.LAUNCHES = before   # timing launches are not the path's
+    log(json.dumps({"phase": "block_scaling", "steps_per_call": steps,
+                    "reps": reps, "rows": rows}))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -583,6 +802,16 @@ def main():
     kernel_checks(dev)
     ph, launches = main_path(dev)
     timing = time_block(ph, steps=20, reps=3)
+    del ph
+    gc.collect()
+    torch.cuda.empty_cache()
+    scaling_ops, chunk_launches, chunk_err, failures = chunked_path(dev)
+    block_scaling(scaling_ops)
+    if failures:
+        raise RuntimeError("chunked path failed: " + "; ".join(failures))
+    launches += chunk_launches
+    # the largest difference at any shape of the path
+    timing["max_abs_err"] = max(timing["max_abs_err"], chunk_err)
     entry = {"name": "admm_block", "route": "cuda",
              "source": "mpisppy_tpu_torch/ops/kernels/csrc/admm_block.cu",
              "replaces": "mpisppy_tpu/ops/kernels/pallas_kernel.py:100",

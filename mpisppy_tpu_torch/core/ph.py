@@ -1,5 +1,5 @@
 """Progressive Hedging: PHBase primitives + the synchronous PH driver
-(the port of mpisppy_tpu/core/ph.py, non-chunked path).
+(the port of mpisppy_tpu/core/ph.py, native precision, one device).
 
 One PH iteration over the whole scenario batch runs three stages:
   1. assemble: the objective rewrite f_s(x) + w_on·Wᵀx + prox_on·ρ/2‖x−x̄‖²
@@ -13,10 +13,17 @@ One PH iteration over the whole scenario batch runs three stages:
 The ADMM state and the factor cache persist across iterations (q is
 the only thing PH changes), replacing the reference's persistent-solver
 set_objective (ref. phbase.py:903).
+
+With ``subproblem_chunk`` below S the solve microbatches over scenario
+chunks that share one factor (``_solve_loop_chunked``): one solve call
+per chunk, one stacked residual read per iteration for the recovery
+gate, bounded chunk retries with blacklists, the per-scenario hospital,
+then one global x̄/W reduction.
 """
 
 from __future__ import annotations
 
+import logging
 import time as _time
 
 import numpy as np
@@ -25,12 +32,27 @@ import torch
 from .. import global_toc, obs
 from ..ir.batch import ScenarioBatch
 from ..ops.qp_solver import (QPData, qp_cold_state,
-                             qp_dual_objective, qp_setup,
-                             qp_solve_segmented)
+                             qp_dual_objective, qp_reset_rho, qp_setup,
+                             qp_solve_segmented, stacked_residuals)
 from .spbase import SPBase, compute_xbar
 
+_log = logging.getLogger("mpisppy_tpu_torch.ph")
+
+# phase -> telemetry span name
 _PHASE_SPAN = {"assemble": "ph.assemble", "solve": "ph.solve",
-               "reduce": "ph.reduce"}
+               "gate": "ph.gate", "reduce": "ph.reduce"}
+
+
+def _mode_str(key):
+    """Human mode tag for telemetry span args: the solve-mode key
+    ((fixed,) prox bool)."""
+    if isinstance(key, tuple):
+        return f"fixed+{'prox' if key[1] else 'noprox'}"
+    return "prox" if key else "noprox"
+
+
+def _not_ported(what):
+    return NotImplementedError(f"{what} is not ported yet (see ROADMAP.md)")
 
 
 def _ph_assemble(data, c, W, xbar, rho, idx, fixed_mask, fixed_vals,
@@ -99,13 +121,14 @@ def _hot_eps(prox_on, sub_eps, sub_eps_hot):
 
 def _solver_call(factors, d, q, qp_state, *, prox_on, precision,
                  sub_max_iter, sub_eps, sub_eps_hot, sub_eps_dua_hot,
-                 stall_rel, segment, polish_hot, polish_chunk, ir_sweeps=1,
-                 kernel=None, adaptive_rho=True):
+                 stall_rel, segment, polish_hot, polish_chunk, tail_iter=0,
+                 ir_sweeps=1, kernel=None, adaptive_rho=True):
     """The precision-policy + solver dispatch. Prox-on solves may use
     loosened hot-loop tolerances and skip the polish
     (subproblem_polish_hot=False); prox-off solves always polish (their
     duals certify bounds). A fused ``kernel`` plan routes the solve
-    through ops/kernels.kernel_solve; otherwise the host-segmented
+    through ops/kernels.kernel_solve; otherwise (``kernel=None``, as
+    every chunk retry and hospital solve passes) the host-segmented
     driver runs."""
     e_pri = _hot_eps(prox_on, sub_eps, sub_eps_hot)
     e_dua = sub_eps_dua_hot if (prox_on and sub_eps_dua_hot is not None) \
@@ -115,7 +138,7 @@ def _solver_call(factors, d, q, qp_state, *, prox_on, precision,
         from ..ops import kernels as _kernels
         return _kernels.kernel_solve(
             kernel, factors, d, q, qp_state, precision=precision,
-            max_iter=sub_max_iter, tail_iter=0, e_pri=e_pri,
+            max_iter=sub_max_iter, tail_iter=tail_iter, e_pri=e_pri,
             e_dua=e_dua, stall_rel=stall_rel, polish=do_polish,
             polish_chunk=polish_chunk, ir_sweeps=ir_sweeps,
             adaptive_rho=adaptive_rho)
@@ -162,9 +185,48 @@ def _ph_step(qp_state, factors, data, c, c0, P0, prob, xbar_w, memberships,
         conv, base_obj, solved_obj, dual_obj
 
 
+class _ChunkStateView:
+    """Lazy concatenated view over per-chunk QPStates, stored at
+    ``_qp_states[key]`` in chunked mode. The state consumers (iter-0
+    feasibility checks, residual summaries, warm-start transplants)
+    read it occasionally, so a field is concatenated on first access,
+    pad rows trimmed, and cached on the instance. The per-chunk states
+    stay authoritative for warm starts.
+
+    Every field has its QPState meaning: x, yA, yB are the SCALED
+    iterates, as zA, zB are. (The JAX package's view holds the unscaled
+    solutions under x, yA, yB beside scaled zA, zB, so a new mode's
+    chunk states transplant a mix of the two; ROADMAP.md C.2.)"""
+
+    _FIELDS = ("x", "yA", "yB", "zA", "zB", "pri_res", "dua_res",
+               "pri_rel", "dua_rel")
+
+    def __init__(self, states, trims):
+        self._states = list(states)
+        self._trims = list(trims)
+
+    def __getattr__(self, name):
+        if name in _ChunkStateView._FIELDS:
+            val = torch.cat([getattr(s, name)[:r]
+                             for s, r in zip(self._states, self._trims)])
+            setattr(self, name, val)
+            return val
+        raise AttributeError(name)
+
+
+def _set_row(t, r, v):
+    """``t`` with row ``r`` replaced by ``v``, as a new tensor: chunk
+    records may share buffers with sibling chunks, so no row is ever
+    written in place."""
+    return t.index_copy(0, torch.tensor([r], device=t.device),
+                        v.unsqueeze(0))
+
+
 class PHBase(SPBase):
     def __init__(self, batch: ScenarioBatch, options=None, rho_setter=None,
-                 extensions=None, dtype=None, device=None):
+                 extensions=None, dtype=None, device=None, mesh=None):
+        if mesh is not None:
+            raise _not_ported("the scenario-axis device mesh")
         super().__init__(batch, options, dtype, device=device)
         opts = self.options
         self.rho_default = float(opts.get("defaultPHrho", 1.0))
@@ -174,6 +236,9 @@ class PHBase(SPBase):
         self.sub_max_iter = int(opts.get("subproblem_max_iter", 5000))
         self.sub_eps = float(opts.get("subproblem_eps", 1e-8))
         self.sub_precision = str(opts.get("subproblem_precision", "native"))
+        # the df32/mixed tail budget; native precision reads it only for
+        # the chunk-retry budget (as the JAX package does)
+        self.sub_tail_iter = int(opts.get("subproblem_tail_iter", 1000))
         _h = opts.get("subproblem_eps_hot", None)
         self.sub_eps_hot = None if _h is None else float(_h)
         _hd = opts.get("subproblem_eps_dua_hot", None)
@@ -202,19 +267,12 @@ class PHBase(SPBase):
                 f"subproblem_ir_sweeps in [{FUSED_IR_SWEEPS.start}, "
                 f"{FUSED_IR_SWEEPS.stop - 1}]; got {self.sub_ir_sweeps}")
         if self.sub_precision != "native":
-            raise NotImplementedError(
-                f"subproblem_precision={self.sub_precision!r} belongs to "
-                "the chunked df32/mixed slice, not ported yet (see "
-                "ROADMAP.md)")
-        chunk = int(opts.get("subproblem_chunk", 0) or 0)
-        if 0 < chunk < batch.S:
-            raise NotImplementedError(
-                "the scenario-chunked PH loop (subproblem_chunk below S) "
-                "is not ported yet (see ROADMAP.md)")
+            raise _not_ported(
+                f"subproblem_precision={self.sub_precision!r} (the "
+                "df32/mixed slice)")
         if opts.get("shrink_fix") or opts.get("shrink_compact") \
                 or opts.get("shrink_rho"):
-            raise NotImplementedError(
-                "problem shrinking is not ported yet (see ROADMAP.md)")
+            raise _not_ported("problem shrinking")
         self._kernel_plans = {}
         self.rho_setter = rho_setter
         self.extensions = extensions
@@ -237,11 +295,42 @@ class PHBase(SPBase):
         self._iter = 0
         self.best_bound = -float("inf")
         self._factors = {}       # prox_on -> (QPFactors, QPData)
-        self._qp_states = {}     # prox_on -> QPState
+        # prox_on -> QPState (a _ChunkStateView in chunked mode)
+        self._qp_states = {}
+        # prox_on -> the per-chunk QPStates of chunked mode
+        self._chunk_states = {}
         self._fixed_mask = torch.zeros((S, K), dtype=torch.bool,
                                        device=dev)
         self._fixed_vals = torch.zeros((S, K), dtype=t, device=dev)
+        # chunked-loop bookkeeping (see _solve_loop_chunked), per mode
+        # key: chunks whose reset-rho retry did not help, and global
+        # scenario ids the hospital failed to improve. Both lists are
+        # cleared every ``subproblem_blacklist_readmit`` solves of the
+        # mode (_blacklist_calls counts them): q moves every PH
+        # iteration, so a row incurable at iteration k may be easy later
+        self._chunk_no_retry = {}
+        self._hospital_no_retry = {}
+        self._blacklist_calls = {}
+        self._chunk_idx_cache = {}
         self._phase_times = {}
+
+    # ------------- observability plumbing -------------
+    def _trace_note(self, etype, msg, **fields):
+        """A recovery/hospital/standing note: a telemetry event, the
+        ``mpisppy_tpu_torch.ph`` logger, and the screen when ``verbose``
+        or ``hospital_trace`` is set."""
+        obs.event(etype, fields)
+        _log.info(msg)
+        if self.verbose or bool(self.options.get("hospital_trace",
+                                                 False)):
+            global_toc(msg)
+
+    def _trace_consumers_active(self):
+        """Whether anything would consume a note: the gate for host math
+        done only to narrate."""
+        return (self.verbose
+                or bool(self.options.get("hospital_trace", False))
+                or obs.enabled() or _log.isEnabledFor(logging.INFO))
 
     # ------------- solver plumbing -------------
     def _data_with_prox(self, prox_on: bool) -> QPData:
@@ -272,7 +361,8 @@ class PHBase(SPBase):
 
     def _kernel_plan(self, key, factors):
         """Cached ops/kernels plan for one mode's factors (invalidated
-        with them)."""
+        with them). Native precision has no per-chunk-size decision, so
+        one plan serves chunked and unchunked calls alike."""
         plan = self._kernel_plans.get(key)
         if plan is None:
             from ..ops import kernels
@@ -285,20 +375,34 @@ class PHBase(SPBase):
         return plan
 
     def invalidate_factors(self):
-        """Call after changing rho."""
-        self._kernel_plans.pop(True, None)
-        self._factors.pop(True, None)
-        self._qp_states.pop(True, None)
+        """Call after changing rho: drops the prox-on factors, plans and
+        solver states (chunked ones included); a new rho also earns
+        every blacklisted chunk and scenario a fresh recovery chance."""
+        self._kernel_plans.clear()
+        for cache in (self._factors, self._qp_states, self._chunk_states):
+            cache.pop(True, None)
+        self._chunk_no_retry.clear()
+        self._hospital_no_retry.clear()
+        self._blacklist_calls.clear()
+        self._chunk_idx_cache.clear()
 
     def _ensure_state(self, prox_on=True):
         """Per-mode solver state (the KKT factor depends on the prox
-        term); x/y/z warm-start across modes."""
+        term); x/y/z warm-start across modes. Always a QPState: a
+        chunked mode's concatenated view is materialized (fresh factor,
+        the view's iterates as warm start)."""
         key = bool(prox_on)
+        st = self._qp_states.get(key)
+        if isinstance(st, _ChunkStateView):
+            factors, d = self._get_factors(prox_on)
+            st = qp_cold_state(factors, d)._replace(
+                x=st.x, yA=st.yA, yB=st.yB, zA=st.zA, zB=st.zB)
+            self._qp_states[key] = st
+            return st
         if key not in self._qp_states:
             factors, d = self._get_factors(prox_on)
             st = qp_cold_state(factors, d)
-            other = next((v for k, v in self._qp_states.items()
-                          if k != key), None)
+            other = self._warm_source(key)
             if other is not None and other.x.shape == st.x.shape \
                     and other.zA.shape == st.zA.shape:
                 st = st._replace(x=other.x, yA=other.yA, yB=other.yB,
@@ -306,18 +410,87 @@ class PHBase(SPBase):
             self._qp_states[key] = st
         return self._qp_states[key]
 
+    def _warm_source(self, exclude=None):
+        """The first cached state (QPState or chunk view) of a mode other
+        than ``exclude``: a new state's warm start."""
+        return next((v for k, v in self._qp_states.items()
+                     if k != exclude), None)
+
+    # ------------- scenario microbatching -------------
+    def _chunk_index(self, chunk):
+        """Per-chunk (scenario index tensor, real row count), every index
+        exactly ``chunk`` long: an uneven final chunk is padded by
+        repeating its last scenario, so every solve call has one shape.
+        The duplicate rows solve redundantly and are trimmed before any
+        reduction. Keyed by (chunk, S) so a mutated batch never reuses
+        stale slices."""
+        S = self.batch.S
+        if (chunk, S) not in self._chunk_idx_cache:
+            out = []
+            for i in range(0, S, chunk):
+                idx = np.arange(i, min(i + chunk, S))
+                real = idx.size
+                if real < chunk:
+                    idx = np.concatenate(
+                        [idx, np.full(chunk - real, idx[-1])])
+                out.append((torch.as_tensor(idx, dtype=torch.long,
+                                            device=self.device), real))
+            self._chunk_idx_cache[(chunk, S)] = out
+        return self._chunk_idx_cache[(chunk, S)]
+
+    def _ensure_chunk_states(self, key, factors, data, slices):
+        """Per-chunk QPStates, the authoritative store of chunked mode
+        (each chunk owns its rho_scale / factor trajectory). ONE cold
+        state serves every chunk, factor included: chunk shapes are
+        identical and nothing on the chunked path writes a state's
+        tensors in place, so the sharing is safe. A new mode transplants
+        its iterates from another mode's (concatenated) state, as
+        _ensure_state does."""
+        if key not in self._chunk_states:
+            # any mode's state, this mode's own included (as the JAX
+            # package reads it)
+            other = self._warm_source()
+            idx0 = slices[0][0]
+            d0 = data._replace(l=data.l[idx0], u=data.u[idx0],
+                               lb=data.lb[idx0], ub=data.ub[idx0])
+            st0 = qp_cold_state(factors, d0)
+            transplant = other is not None \
+                and other.x.shape[0] == self.batch.S \
+                and other.zA.shape[1] == st0.zA.shape[1] \
+                and other.x.shape[-1] == st0.x.shape[-1]
+            states = []
+            for idx, _ in slices:
+                st = st0
+                if transplant:
+                    st = st._replace(x=other.x[idx], yA=other.yA[idx],
+                                     yB=other.yB[idx], zA=other.zA[idx],
+                                     zB=other.zB[idx])
+                states.append(st)
+            self._chunk_states[key] = states
+        return self._chunk_states[key]
+
     # ------------- the PH step -------------
-    def solve_loop(self, w_on=True, prox_on=True, update=True):
+    def solve_loop(self, w_on=True, prox_on=True, update=True,
+                   dispatch=None):
         """One batched solve pass in the given mode (ref. phbase.py:999
         solve_loop) + Compute_Xbar + Update_W. Returns the per-scenario
-        solved objective (with the W term when w_on)."""
+        solved objective (with the W term when w_on). With
+        ``subproblem_chunk`` below S the solve microbatches over scenario
+        chunks (_solve_loop_chunked)."""
+        if dispatch is not None:
+            raise _not_ported("the dispatch-masked solve (APH φ-dispatch)")
         obs.counter_add("ph.solve_loop_calls")
+        chunk = int(self.options.get("subproblem_chunk", 0) or 0)
+        if 0 < chunk < self.batch.S:
+            return self._solve_loop_chunked(chunk, w_on, prox_on, update)
         qp_state = self._ensure_state(prox_on)
         factors, data = self._get_factors(prox_on)
         skey = bool(prox_on)
         ent = self._phase_times.setdefault(
-            skey, {"acc": {"assemble": 0.0, "solve": 0.0, "reduce": 0.0},
-                   "calls": 0})
+            skey, {"acc": {"assemble": 0.0, "solve": 0.0, "gate": 0.0,
+                           "reduce": 0.0},
+                   "calls": 0, "gate_syncs": 0, "devices": 1,
+                   "mode": "host"})
         ent["calls"] += 1
         plan = self._kernel_plan(skey, factors)
         ent["kernel"] = plan.descriptor()
@@ -359,6 +532,416 @@ class PHBase(SPBase):
         self._last_dual_obj = dual_obj
         self._ext("post_solve")
         return solved_obj
+
+    def _solve_loop_chunked(self, chunk, w_on, prox_on, update):
+        """Scenario microbatching: S scenarios solved in ceil(S/chunk)
+        shared-factor solve calls, then one global membership reduce.
+        Needs shared structure (one A and P for every scenario: the
+        representation that makes single-factor chunking exact).
+
+        Pipelined (default; ``subproblem_pipeline=0`` is the plain
+        sequential loop):
+         - ASSEMBLE: every chunk's (q, bounds) is formed up front;
+         - SOLVE: one solve call per chunk (on the fused ``cuda``
+           backend, one hand-written ADMM block call per chunk);
+         - GATE: the recovery and hospital decisions read ONE stacked
+           residual matrix, a single device-to-host copy per call
+           instead of one blocking read per chunk;
+         - pass 2 retries a chunk far above the gate once from a reset
+           rho (segmented, native precision) and blacklists it when
+           that does not help; pass 2b sends the scenarios still above
+           it to the hospital (_hospitalize); pass 3 computes the
+           objectives and the certified dual bound per chunk on the
+           accepted solutions and runs one global x̄/W reduction.
+        Per-phase wall-clock and gate syncs land in ``phase_timing()``."""
+        key = bool(prox_on)
+        factors, data = self._get_factors(prox_on)
+        if factors.A_s.ndim != 2:
+            raise ValueError(
+                "subproblem_chunk requires a shared-structure batch "
+                "(every scenario must carry the same A and P; "
+                "per-scenario matrices need per-scenario factors and "
+                "gain nothing from chunking)")
+        slices = self._chunk_index(chunk)
+        states = self._ensure_chunk_states(key, factors, data, slices)
+        plan = self._kernel_plan(key, factors)
+        kw = dict(prox_on=key, precision=self.sub_precision,
+                  sub_max_iter=self.sub_max_iter, sub_eps=self.sub_eps,
+                  sub_eps_hot=self.sub_eps_hot,
+                  sub_eps_dua_hot=self.sub_eps_dua_hot,
+                  tail_iter=self.sub_tail_iter,
+                  stall_rel=self.sub_stall_rel, segment=self.sub_segment,
+                  polish_hot=self.sub_polish_hot,
+                  polish_chunk=self.sub_polish_chunk,
+                  ir_sweeps=self.sub_ir_sweeps, kernel=plan)
+        pipeline = bool(int(self.options.get("subproblem_pipeline", 1)))
+        ent = self._phase_times.setdefault(
+            key, {"acc": {"assemble": 0.0, "solve": 0.0, "gate": 0.0,
+                          "reduce": 0.0},
+                  "calls": 0, "gate_syncs": 0, "devices": 1,
+                  "mode": "host"})
+        acc = ent["acc"]
+        ent["calls"] += 1
+        ent["kernel"] = plan.descriptor()
+        gate_syncs = 0
+        sp_args = {"mode": _mode_str(key)} if obs.enabled() else None
+        t_mark = _time.perf_counter()
+
+        def _lap(phase):
+            nonlocal t_mark
+            now = _time.perf_counter()
+            acc[phase] += now - t_mark
+            obs.complete_span(_PHASE_SPAN[phase], t_mark, now, cat="ph",
+                              args=sp_args)
+            t_mark = now
+
+        # record layout (indices 0-3 are the _hospitalize contract):
+        #  [st, x, yA, yB, d_c, q_c, factors]
+        def _assemble(ci):
+            idx_c, _ = slices[ci]
+            d_c = data._replace(l=data.l[idx_c], u=data.u[idx_c],
+                                lb=data.lb[idx_c], ub=data.ub[idx_c])
+            ws = None if self._w_scale is None else self._w_scale[idx_c]
+            q_c, bl_c, bu_c = _ph_assemble(
+                d_c, self.c[idx_c], self.W[idx_c], self.xbar[idx_c],
+                self.rho[idx_c], self.nonant_idx,
+                self._fixed_mask[idx_c], self._fixed_vals[idx_c], ws,
+                w_on=bool(w_on), prox_on=key)
+            return d_c._replace(lb=bl_c, ub=bu_c), q_c
+
+        inputs = [_assemble(ci) for ci in range(len(slices))] \
+            if pipeline else None
+        _lap("assemble")
+
+        # pass 1 — SOLVE
+        solved_chunks = [None] * len(slices)
+        for ci in range(len(slices)):
+            if pipeline:
+                d_c, q_c = inputs[ci]
+            else:
+                # sequential opt-out: assembly stays on the critical
+                # path, but books under "assemble" (t_mark advances)
+                t_a = _time.perf_counter()
+                d_c, q_c = _assemble(ci)
+                dt_a = _time.perf_counter() - t_a
+                acc["assemble"] += dt_a
+                t_mark += dt_a
+            t_c = _time.perf_counter()
+            st, x, yA, yB = _solver_call(factors, d_c, q_c, states[ci],
+                                         **kw)
+            if obs.enabled():
+                obs.complete_span(
+                    "ph.solve.chunk", t_c, _time.perf_counter(),
+                    cat="ph", args={"chunk": ci, "mode": sp_args["mode"],
+                                    "devices": 1})
+            solved_chunks[ci] = [st, x, yA, yB, d_c, q_c, factors]
+        if plan.mode == "fused":
+            # phase honesty: fused solves never block mid-solve, so
+            # without one wait here the device time would book under
+            # "gate" (its first read). Every chunk is already enqueued:
+            # one synchronize, no transfer
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            if obs.enabled():
+                obs.counter_add(
+                    "kernel.fused_iters",
+                    sum(int(rec[0].iters) for rec in solved_chunks))
+        _lap("solve")
+        # pass 2 — bounded recovery of chunks far above the gate
+        thr = max(100 * _hot_eps(key, self.sub_eps, self.sub_eps_hot),
+                  1e-2)
+        # THE GATE: every recovery/hospital/standing decision below
+        # reads this host copy of every chunk's pri_rel (kept current by
+        # the retries and the hospital)
+        if pipeline:
+            pri_host = stacked_residuals(
+                [rec[0] for rec in solved_chunks]).cpu().numpy().copy()
+            gate_syncs += 1
+        else:
+            pri_host = np.stack([rec[0].pri_rel.cpu().numpy()
+                                 for rec in solved_chunks])
+            gate_syncs += len(solved_chunks)
+        if obs.enabled():
+            obs.counter_add("xfer.d2h_bytes", pri_host.nbytes)
+        # blacklist re-admission every ``readmit`` solves of this mode
+        readmit = int(self.options.get("subproblem_blacklist_readmit", 16))
+        calls = self._blacklist_calls[key] = \
+            self._blacklist_calls.get(key, 0) + 1
+        if readmit and calls % readmit == 0 and (
+                self._chunk_no_retry.get(key)
+                or self._hospital_no_retry.get(key)):
+            nb = len(self._chunk_no_retry.get(key, ())) \
+                + len(self._hospital_no_retry.get(key, ()))
+            self._chunk_no_retry.pop(key, None)
+            self._hospital_no_retry.pop(key, None)
+            obs.counter_add("ph.blacklist_readmitted", nb)
+            self._trace_note(
+                "ph.blacklist_readmit",
+                f"blacklist: re-admitting {nb} entr"
+                f"{'y' if nb == 1 else 'ies'} for recovery "
+                f"(every {readmit} solves)", count=nb, every=readmit)
+        no_retry = self._chunk_no_retry.setdefault(key, set())
+        for ci, rec in enumerate(solved_chunks):
+            m = float(pri_host[ci].max())
+            is_nan = not np.isfinite(m)
+            # the blacklist stops repeated retries of a hard chunk, but
+            # NaN iterates are always replaced: stored, they would
+            # poison every later warm start
+            if (m <= thr) or (ci in no_retry and not is_nan):
+                continue
+            fac_c, d_r, q_r = rec[6], rec[4], rec[5]
+            if is_nan:
+                # the iterates themselves are poison: restart cold
+                st_r = qp_cold_state(fac_c, d_r)
+            else:
+                # plateaued far out: keep the iterates, reset the
+                # stepsize trajectory
+                st_r = qp_reset_rho(fac_c, rec[0])
+            # the retry runs segmented (kernel=None) in native precision
+            # with a budget at least the original solve's
+            kw_r = dict(kw, precision="native", kernel=None,
+                        sub_max_iter=max(kw["sub_max_iter"]
+                                         + 4 * kw["tail_iter"], 1500))
+            st2, x2, yA2, yB2 = _solver_call(fac_c, d_r, q_r, st_r,
+                                             **kw_r)
+            pri2 = st2.pri_rel.cpu().numpy()   # the retry's own sync
+            gate_syncs += 1
+            if obs.enabled():
+                obs.counter_add("xfer.d2h_bytes", pri2.nbytes)
+            m2 = float(pri2.max())
+            obs.counter_add("ph.chunk_retries")
+            obs.event("ph.chunk_retry",
+                      {"chunk": ci, "nan": is_nan, "pri_rel_before": m,
+                       "pri_rel_after": m2})
+            if np.isfinite(m2) and (is_nan or m2 < m):
+                rec[:4] = [st2, x2, yA2, yB2]
+                pri_host[ci] = pri2
+            elif is_nan:
+                # both attempts NaN: keep the clean cold state so the
+                # next iteration starts from finite values
+                rec[:4] = [st_r, st_r.x, st_r.yA, st_r.yB]
+                pri_host[ci] = np.inf
+            if not (m2 <= thr):
+                no_retry.add(ci)
+        # pass 2b — the scenario hospital
+        if bool(self.options.get("subproblem_hospital", True)):
+            gate_syncs += self._hospitalize(key, slices, solved_chunks,
+                                            data, thr, bool(w_on), key,
+                                            kw, pri_host=pri_host)
+        # standing casualties: rows still above the gate enter x̄/W with
+        # their loose solutions this iteration; say so when anything
+        # listens
+        if self._trace_consumers_active():
+            standing = []
+            for ci, (idx_c, real) in enumerate(slices):
+                pr = pri_host[ci][:real]
+                bad = np.flatnonzero(~(pr <= thr))
+                if bad.size:
+                    ids = idx_c.tolist()
+                    standing += [(ids[r], float(pr[r])) for r in bad
+                                 if ids[r] < self._S_orig]
+            if standing:
+                g_w, pr_w = max(standing, key=lambda t: t[1])
+                when = (f"re-admission in {readmit - calls % readmit} "
+                        "solves" if readmit else "re-admission disabled")
+                obs.counter_add("ph.standing_rows", len(standing))
+                self._trace_note(
+                    "ph.standing",
+                    f"standing: {len(standing)} scenario row(s) above "
+                    f"pri_rel gate {thr:.0e} enter xbar/W loose "
+                    f"(worst s{g_w}:{pr_w:.0e}; {when})",
+                    rows=len(standing), gate=thr, worst_scenario=g_w,
+                    worst_pri_rel=pr_w)
+        ent["gate_syncs"] += gate_syncs
+        obs.counter_add("ph.gate_syncs", gate_syncs)
+        _lap("gate")
+        # pass 3 — per-chunk objectives on the accepted solutions, pad
+        # rows trimmed
+        parts = {k: [] for k in ("x", "yA", "yB", "xn", "base", "solved",
+                                 "dual")}
+        for ci, (idx_c, real) in enumerate(slices):
+            st, x, yA, yB, d_h, q_h, _ = solved_chunks[ci]
+            states[ci] = st
+            xn, base, solved, dual = _ph_chunk_objs(
+                x, yA, yB, d_h, q_h, self.c[idx_c], self.c0[idx_c],
+                self.P_diag[idx_c], self.nonant_idx, self.W[idx_c],
+                w_on=bool(w_on))
+            for k, v in (("x", x), ("yA", yA), ("yB", yB), ("xn", xn),
+                         ("base", base), ("solved", solved),
+                         ("dual", dual)):
+                parts[k].append(v[:real])
+        cat = {k: torch.cat(v) for k, v in parts.items()}
+        self._qp_states[key] = _ChunkStateView(
+            states, [real for _, real in slices])
+        self.x, self.yA, self.yB = cat["x"], cat["yA"], cat["yB"]
+        if update:
+            wmask = None if self._w_scale is None else self._w_scale > 0
+            xbar_new, xsqbar_new, W_new, conv = _ph_combine(
+                cat["xn"], self.prob, self.xbar_weights,
+                tuple(self.memberships), self.W, self.rho, wmask,
+                slot_slices=self.slot_bounds)
+            self.xbar, self.xsqbar = xbar_new, xsqbar_new
+            self.W_new = W_new
+            # the per-iteration convergence scalar: the one designed sync
+            self.conv = float(conv)
+            obs.gauge_set("ph.conv", self.conv)
+        self._last_base_obj = cat["base"]
+        self._last_solved_obj = cat["solved"]
+        self._last_dual_obj = cat["dual"]
+        _lap("reduce")
+        self._ext("post_solve")
+        return cat["solved"]
+
+    def _hospitalize(self, key, slices, solved_chunks, data, thr, w_on,
+                     prox_on, kw, pri_host=None):
+        """Per-scenario rescue solves for chunked-mode stragglers. The
+        shared factor's scaling and rho patterns are computed against
+        the reference cost c while PH solves q = c + (W − ρx̄); for an
+        outlier scenario that compromise can stall ADMM far from
+        feasibility. Selected scenarios (worst first, at most
+        ``subproblem_hospital_max``, the selection padded to that cap)
+        are re-assembled and solved NON-shared from cold: own scaling
+        against their own q, own adaptive rho, own (n, n) factor. Their
+        unscaled solution and residual rows replace the chunk records'
+        rows (as new tensors); the chunk states keep their own iterates,
+        which live in another scaling. A scenario the hospital does not
+        cure is not treated again until re-admission.
+
+        ``pri_host``: the gate's (n_chunks, chunk) host residual matrix;
+        cured rows are written back into it. Returns the number of
+        host transfers made (0 or 1)."""
+        cap = int(self.options.get("subproblem_hospital_max", 4))
+        failed = self._hospital_no_retry.setdefault(key, set())
+        picks = []                      # (chunk, row, scenario, pri_rel)
+        for ci, (idx_c, real) in enumerate(slices):
+            pr = (solved_chunks[ci][0].pri_rel.cpu().numpy()
+                  if pri_host is None else pri_host[ci])[:real]
+            bad = np.flatnonzero(~(pr <= thr))
+            if not bad.size:
+                continue
+            ids = idx_c.tolist()
+            for r in bad:
+                # keyed by GLOBAL scenario id: chunk-local coordinates
+                # would re-target other scenarios if the chunk changed
+                g = ids[r]
+                if g not in failed and g < self._S_orig:
+                    picks.append((ci, int(r), g, float(pr[r])))
+        if not picks:
+            return 0
+        picks.sort(key=lambda t: -t[3])     # worst first under the cap
+        picks = picks[:cap]
+        sel = np.array([g for _, _, g, _ in picks])
+        pad = cap - sel.size
+        sel_p = np.concatenate([sel, np.full(pad, sel[0])]) if pad else sel
+        k = sel_p.size
+        sel_t = torch.as_tensor(sel_p, dtype=torch.long, device=self.device)
+        n = int(data.lb.shape[-1])
+        A_b = data.A.expand(k, *data.A.shape) if data.A.ndim == 2 \
+            else data.A[sel_t]
+        P_b = data.P_diag.expand(k, n) if data.P_diag.ndim == 1 \
+            else data.P_diag[sel_t]
+        d_h = QPData(P_b, A_b, data.l[sel_t], data.u[sel_t],
+                     data.lb[sel_t], data.ub[sel_t])
+        ws = None if self._w_scale is None else self._w_scale[sel_t]
+        q_h, bl_h, bu_h = _ph_assemble(
+            d_h, self.c[sel_t], self.W[sel_t], self.xbar[sel_t],
+            self.rho[sel_t], self.nonant_idx, self._fixed_mask[sel_t],
+            self._fixed_vals[sel_t], ws, w_on=w_on, prox_on=prox_on)
+        d_h = d_h._replace(lb=bl_h, ub=bu_h)
+        fac_h = qp_setup(d_h, q_ref=q_h)
+        st_h = qp_cold_state(fac_h, d_h)
+        # native precision, a larger budget and long segments: the
+        # batch is a few rows
+        st_h, x_h, yA_h, yB_h = _solver_call(
+            fac_h, d_h, q_h, st_h,
+            **dict(kw, precision="native", kernel=None,
+                   sub_max_iter=max(6000, kw["sub_max_iter"]),
+                   segment=1500))
+        pr_h = st_h.pri_rel.cpu().numpy()
+        obs.counter_add("ph.hospital_treated", len(picks))
+        worst = " ".join(
+            f"s{g}:{pr_old:.0e}->{pr_h[j]:.0e}"
+            for j, (_, _, g, pr_old) in enumerate(picks))
+        self._trace_note(
+            "ph.hospital",
+            f"hospital: treated {len(picks)} scenario(s) [{worst}]",
+            treated=len(picks),
+            scenarios=[{"scenario": g, "pri_rel_before": pr_old,
+                        "pri_rel_after": float(pr_h[j])}
+                       for j, (_, _, g, pr_old) in enumerate(picks)])
+        for j, (ci, r, g, pr_old) in enumerate(picks):
+            if not (pr_h[j] <= thr):
+                # one shot per scenario until re-admission; an improved
+                # row still gets its better solution below
+                failed.add(g)
+            if not (pr_h[j] < pr_old):
+                continue
+            rec = solved_chunks[ci]
+            st = rec[0]
+            rec[0] = st._replace(
+                pri_res=_set_row(st.pri_res, r, st_h.pri_res[j]),
+                dua_res=_set_row(st.dua_res, r, st_h.dua_res[j]),
+                pri_rel=_set_row(st.pri_rel, r, st_h.pri_rel[j]),
+                dua_rel=_set_row(st.dua_rel, r, st_h.dua_rel[j]))
+            rec[1] = _set_row(rec[1], r, x_h[j])
+            rec[2] = _set_row(rec[2], r, yA_h[j])
+            rec[3] = _set_row(rec[3], r, yB_h[j])
+            if pri_host is not None:
+                pri_host[ci][r] = pr_h[j]
+        return 1
+
+    # ------------- phase anatomy -------------
+    def reset_phase_timing(self):
+        """Zero the per-phase wall-clock accumulators. Telemetry
+        counters (ph.gate_syncs and friends) are cumulative and survive
+        this reset."""
+        self._phase_times.clear()
+
+    def phase_timing(self, key=True):
+        """Per-phase wall-clock anatomy of the solve loop for one mode
+        key: mean seconds per solve_loop call in each phase (assemble /
+        solve / gate / reduce; the unchunked path books gate 0), the
+        occupancy estimate solve / total (the solve phase is the one
+        that waits on the device), the gate's host syncs per call, and
+        the kernel plan's descriptor. None when the key never ran."""
+        ent = self._phase_times.get(key)
+        if not ent or not ent["calls"]:
+            return None
+        n = ent["calls"]
+        per_call = {p: ent["acc"][p] / n for p in
+                    ("assemble", "solve", "gate", "reduce")}
+        total = sum(per_call.values())
+        return {
+            "calls": n,
+            "seconds_per_call": per_call,
+            "occupancy": (per_call["solve"] / total) if total > 0 else 0.0,
+            "gate_d2h_syncs_per_call": ent["gate_syncs"] / n,
+            "devices": ent["devices"],
+            "mode": ent.get("mode", "host"),
+            "kernel": ent.get("kernel"),
+        }
+
+    def _phase_totals(self):
+        """Accumulated per-phase wall-clock summed over every mode."""
+        tot = {"assemble": 0.0, "solve": 0.0, "gate": 0.0, "reduce": 0.0}
+        for ent in self._phase_times.values():
+            for k, v in ent["acc"].items():
+                tot[k] += v
+        return tot
+
+    def residual_summary(self, key=True):
+        """Host summary of the last solve's relative residuals for one
+        mode key (None when that mode never ran); reads an (S,) vector
+        back from the device."""
+        st = self._qp_states.get(key)
+        if st is None:
+            return None
+        pri = st.pri_rel.cpu().numpy()[:self._S_orig]
+        dua = st.dua_rel.cpu().numpy()[:self._S_orig]
+        return {"pri_rel_max": float(pri.max()),
+                "pri_rel_mean": float(pri.mean()),
+                "dua_rel_max": float(dua.max()),
+                "dua_rel_mean": float(dua.mean())}
 
     def iter0_feasible_mask(self, tol=None):
         """(ok_per_scenario, tol): a scenario passes on EITHER the

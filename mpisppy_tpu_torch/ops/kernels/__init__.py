@@ -7,8 +7,8 @@ subproblem solve, with backend ``reference`` (qp_solve) or ``cuda``
 (the hand-written ADMM block, ``admm_block``, then the qp_solve
 finisher); ``auto`` resolves to fused. ``pallas`` is read as ``cuda``.
 
-The ``mixed`` and ``df32`` precisions wait for the chunked slice
-(ROADMAP.md) and raise NotImplementedError here.
+The ``mixed`` and ``df32`` precisions wait for their slice (A7b in
+ROADMAP.md) and raise NotImplementedError here.
 """
 
 from __future__ import annotations
@@ -27,8 +27,8 @@ from . import admm_block
 
 def _not_ported(precision):
     return NotImplementedError(
-        f"subproblem_precision={precision!r} belongs to the chunked "
-        "df32/mixed slice, not ported yet (see ROADMAP.md)")
+        f"subproblem_precision={precision!r} belongs to the df32/mixed "
+        "slice, not ported yet (see ROADMAP.md)")
 
 
 def resolve_mode(mode: str, factors) -> str:
@@ -94,7 +94,12 @@ def kernel_solve(plan: KernelPlan, factors, data, q, state, *,
     of the JAX package's signature, unused in native precision). On the
     cuda backend the ADMM block runs the WHOLE budget at fixed rho, then
     qp_solve(max_iter=0) polishes and unscales its iterates through the
-    reference code, and ``iters`` is set to the budget."""
+    reference code, and ``iters`` is set to the budget: a host int, as
+    every solver state of the port carries it (the JAX package keeps a
+    device int32 there), so the chunked loop books ``kernel.fused_iters``
+    without a device read. The chunked loop's retries and hospital pass
+    ``kernel=None`` and never reach this function: they run segmented
+    in native precision."""
     if precision in ("mixed", "df32"):
         raise _not_ported(precision)
     if plan.backend == "cuda" \

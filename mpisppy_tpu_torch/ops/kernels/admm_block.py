@@ -34,9 +34,10 @@ import torch
 
 from ..qp_solver import LInv, _scaled_problem
 
-__all__ = ["LAUNCHES", "SCEN_TILE_TARGET", "admm_block_launches",
-           "admm_block_plain", "block_schedule", "fused_admm_block",
-           "launch_plan", "pick_scen_tile", "scope_supported"]
+__all__ = ["LAUNCHES", "SCEN_GROUP", "SCEN_TILE_TARGET",
+           "admm_block_launches", "admm_block_plain", "block_schedule",
+           "fused_admm_block", "launch_plan", "pick_scen_tile",
+           "scope_supported"]
 
 # CUDA kernel launches made by fused_admm_block (admm_block_launches per
 # call); the plain CPU path launches nothing and adds nothing
@@ -60,6 +61,9 @@ RAMP_STAGES = 2         # a CTA's ring fill, in stages of streaming time
 
 # rows per scenario tile when the caller does not choose
 SCEN_TILE_TARGET = 128
+# scenario rows per group on the kernel's grid.y (csrc: SB_MAX): every
+# group streams A and F through its own CTAs
+SCEN_GROUP = 16
 
 # operand order of the C entry point admm_block_run
 _IN = ("A", "F", "Ps", "g", "q_s", "l_s", "u_s", "lb_s", "ub_s", "rA",

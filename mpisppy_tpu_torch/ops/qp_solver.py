@@ -334,6 +334,15 @@ def _amax_abs(a):
     return a.abs().amax(dim=1)
 
 
+def stacked_residuals(states, field="pri_rel"):
+    """One device-side stack of per-chunk residual vectors ->
+    (n_chunks, chunk). The chunked PH gate reads every chunk's
+    residuals each iteration; stacking on the device first means the
+    caller pays ONE device-to-host copy per iteration instead of one
+    blocking read per chunk."""
+    return torch.stack([getattr(s, field) for s in states])
+
+
 def _unscaled_residuals(A_s, P_s, g, D, E, Eb, csx, q_s, x, yA, yB, zA,
                         zB):
     """UNSCALED residuals (OSQP's default termination convention) and

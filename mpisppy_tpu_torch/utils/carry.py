@@ -9,13 +9,26 @@ key is present:
                  invalidates the prox-on factors, as a rho setter does;
   solver state   ``qp_state``: {``x``, ``yA``, ``yB``, ``zA``, ``zB``,
                  ``F`` (the solve operator), ``rho_scale``} for the
-                 mode ``prox_on`` (default True).
+                 mode ``prox_on`` (default True);
+  chunk states   ``chunks``: a list of such dicts, one per chunk of the
+                 engine's ``subproblem_chunk`` layout, each optionally
+                 with ``pri_res``/``dua_res``/``pri_rel``/``dua_rel``
+                 (infinite when absent), installed under
+                 the engine's per-chunk store for ``prox_on``, with
+                 the concatenated view as its solver state;
+  blacklists     ``chunk_no_retry`` (chunk numbers),
+                 ``hospital_no_retry`` (scenario ids) and
+                 ``blacklist_calls`` (solves of the mode so far).
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
+
+from ..ops.qp_solver import QPState
 
 
 def _t(a, engine, device):
@@ -26,6 +39,7 @@ def from_numpy_state(engine, arrays: dict, device=None, prox_on=True):
     """Install ``arrays`` (numpy) into ``engine`` on ``device`` (the
     engine's device when None). Returns the engine."""
     dev = engine.device if device is None else torch.device(device)
+    key = bool(prox_on)
     d = engine.qp_data
     vec = {k: _t(arrays[k], engine, dev)
            for k in ("l", "u", "lb", "ub") if k in arrays}
@@ -48,5 +62,31 @@ def from_numpy_state(engine, arrays: dict, device=None, prox_on=True):
             **{k: _t(src[k], engine, dev)
                for k in ("x", "yA", "yB", "zA", "zB", "rho_scale")},
             L=_t(src["F"], engine, dev))
-        engine._qp_states[bool(prox_on)] = st
+        engine._qp_states[key] = st
+    if "chunks" in arrays:
+        from ..core.ph import _ChunkStateView
+        slices = engine._chunk_index(
+            int(engine.options.get("subproblem_chunk", 0)))
+        if len(arrays["chunks"]) != len(slices):
+            raise ValueError(f"{len(arrays['chunks'])} chunk states for "
+                             f"a layout of {len(slices)} chunks")
+        states = []
+        for src in arrays["chunks"]:
+            rows = np.asarray(src["x"]).shape[0]
+            states.append(QPState(
+                L=_t(src["F"], engine, dev), iters=0,
+                **{k: _t(src[k], engine, dev)
+                   for k in ("x", "yA", "yB", "zA", "zB", "rho_scale")},
+                **{k: _t(src[k] if k in src else np.full(rows, math.inf),
+                         engine, dev)
+                   for k in ("pri_res", "dua_res", "pri_rel", "dua_rel")}))
+        engine._chunk_states[key] = states
+        engine._qp_states[key] = _ChunkStateView(
+            states, [real for _, real in slices])
+    for name, attr in (("chunk_no_retry", "_chunk_no_retry"),
+                       ("hospital_no_retry", "_hospital_no_retry")):
+        if name in arrays:
+            getattr(engine, attr)[key] = {int(v) for v in arrays[name]}
+    if "blacklist_calls" in arrays:
+        engine._blacklist_calls[key] = int(arrays["blacklist_calls"])
     return engine

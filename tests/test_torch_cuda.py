@@ -153,3 +153,53 @@ def test_wrapper_rejects_bad_operands(cuda):
     with pytest.raises(TypeError, match="float64"):
         admm_block.fused_admm_block(f, d, q, st._replace(
             x=st.x.float()), n_steps=1)
+
+
+@pytest.mark.cuda
+def test_wrapper_leaves_its_input_state_unchanged(cuda):
+    """The wrapper hands the kernel clones of the iterates: chunk states
+    share buffers (one cold state serves every chunk of a mode), so a
+    call must not write the state it was given."""
+    f, d, q, st = _tiny(19, cuda)
+    st = st._replace(**dict(zip(("x", "yA", "yB", "zA", "zB"),
+                                admm_block.fused_admm_block(
+                                    f, d, q, st, n_steps=10)[:5])))
+    before = {k: getattr(st, k).clone() for k in
+              ("x", "yA", "yB", "zA", "zB", "L", "rho_scale")}
+    out = admm_block.fused_admm_block(f, d, q, st, n_steps=20)
+    torch.cuda.synchronize()
+    assert not torch.equal(out[0], st.x)
+    for k, v in before.items():
+        assert torch.equal(getattr(st, k), v), k
+
+
+@pytest.mark.cuda
+def test_chunked_fused_ph_equals_unchunked(cuda):
+    """UC 3 x 6, S = 8 in chunks of 4, fused mode on the kernel: x̄ and W
+    after iter 0 and two prox-on iterations equal the unchunked run's to
+    1e-12 x max(1, |.|) (the kernel's per-row summation order does not
+    depend on the rows of the call, and with chunks of 4 and the polish
+    in pairs every scenario meets the same pairs)."""
+    from mpisppy_tpu_torch.core.ph import PH
+    from mpisppy_tpu_torch.ir.batch import build_batch
+    from mpisppy_tpu_torch.models import uc
+
+    batch = build_batch(uc.scenario_creator, uc.make_tree(8),
+                        creator_kwargs={"num_gens": 3, "num_hours": 6},
+                        vector_patch=uc.scenario_vector_patch)
+    opts = {"defaultPHrho": 100.0, "PHIterLimit": 2,
+            "subproblem_kernel_mode": "fused",
+            "subproblem_kernel_backend": "cuda",
+            "subproblem_max_iter": 400, "subproblem_polish_hot": False,
+            "subproblem_polish_chunk": 2}
+    a = PH(batch, {**opts, "subproblem_chunk": 4}, device=cuda)
+    b = PH(batch, dict(opts), device=cuda)
+    before = admm_block.LAUNCHES
+    a.ph_main()
+    assert admm_block.LAUNCHES - before \
+        == 2 * 3 * admm_block.admm_block_launches(400, False)
+    b.ph_main()
+    assert a.phase_timing(True)["gate_d2h_syncs_per_call"] == 1.0
+    for got, ref in ((a.xbar, b.xbar), (a.W, b.W)):
+        scale = max(1.0, float(ref.abs().max()))
+        assert float((got - ref).abs().max()) <= 1e-12 * scale
