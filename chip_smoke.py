@@ -32,9 +32,27 @@
    x̄ and W after one prox-on iteration equal an unchunked run's on the
    same batch to 1e-9;
 6. times one 20-step block call at full width for S = 16, 48 and 128
-   rows tiled from the chunked batch (``block_scaling``), and prints one
-   {"kernels": [...]} line whose launches count phases 3 and 5 and
-   whose max_abs_err is the largest of phases 4 and 5.
+   rows tiled from the chunked batch (``block_scaling``), beside the
+   step's three products as library calls and the step's floors;
+7. runs the native chunked loop on the reference backend (rho adapts)
+   for three PH iterations on the chunked path's batch
+   (``native_reference``), then the JAX bench's df32 recipe (its DF32
+   dict, chunks of 16, three PH iterations, kernel mode auto) through
+   ``PH(...).ph_main()`` on that batch (``df32_path``): checks the
+   engine's iter-0 gate at the bench's 5e-3, the post-solve prox-on
+   residual, the Eobjective within 2e-2 of the reference-backend run's,
+   the certified trivial bound against both native runs' iter-0 primal
+   objectives, that the ADMM block was never launched, and the packed
+   split matvec against the dense one on the card with a planted fault;
+   times one chunk's split factorization, L⁻¹ build, f32 bulk step and
+   df32 tail step beside the byte model;
+8. times the df32 bulk and tail steps and one fused solve call with the
+   chunk's operands tiled to 16 and 128 rows (``df32_scaling``), beside
+   phase 6's native block at the same rows;
+9. runs one fused and one segmented mixed-precision PH iteration on a
+   small chunked UC and checks that x̄ and W agree (``mixed_check``);
+then prints one {"kernels": [...]} line whose launches count phases 3
+and 5 and whose max_abs_err is the largest of phases 4 and 5.
 The last line is {"ok": true, "device": {...}}; any failed check raises.
 """
 
@@ -301,12 +319,14 @@ def kernel_checks(dev):
 
 
 class IterLog:
-    """PH extension: per-iteration conv and wall seconds."""
+    """PH extension: per-iteration conv and wall seconds, and the iter-0
+    (wait-and-see) primal Eobjective."""
 
     def __init__(self):
         self.rows = []
         self.t = None
         self.t0 = time.perf_counter()
+        self.iter0_eobjective = None
 
     def post_solve(self, ph):
         if ph._iter == 0 and self.t is None:
@@ -317,6 +337,7 @@ class IterLog:
                             "seconds": time.perf_counter() - self.t0}))
 
     def post_iter0(self, ph):
+        self.iter0_eobjective = ph.Eobjective_value()
         self.t = time.perf_counter()
 
     def miditer(self, ph):
@@ -471,15 +492,17 @@ def time_block(ph, steps, reps):
     ms = sum(t["kernel"]) / len(t["kernel"])
     plain_ms = sum(t["plain"]) / len(t["plain"])
     lib_ms = t["library"][0]
-    # least time for the same work: each input read once and each output
-    # written once (A, F and the vectors), or the f64 operations at the
-    # card's f64 peak, whichever is larger
+    # least time for the same work, the larger of two floors: the f64
+    # operations at the card's f64 peak, and the bytes. A (m x n) and F
+    # (n x n) are gigabytes, far over the 50 MB L2, and every step reads
+    # the previous step's result through them, so each is read at least
+    # once per step; the residual tail reads A once more. The vectors:
     # scalings (6n + 2m), scaled problem vectors (3Sn + 2Sm), iterates
     # in and out (2 x (3Sn + 2Sm)), pri and dua (2S)
     vec_bytes = 8 * (6 * n + 2 * m + 9 * S * n + 6 * S * m + 2 * S)
-    bytes_once = 8 * (m * n + n * n) + vec_bytes
+    bytes_floor = steps * 8 * (m * n + n * n) + 8 * m * n + vec_bytes
     flops = steps * (4 * S * m * n + 2 * S * n * n) + 4 * S * m * n
-    t_bytes = bytes_once / HBM_BYTES_PER_S * 1e3
+    t_bytes = bytes_floor / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F64_FLOP_PER_S * 1e3
     # what the design streams: one pass per matrix per step (2 A + F),
     # plus the tail's 2 A, at the data-sheet bandwidth (computed, not
@@ -600,24 +623,31 @@ def _max_rel_diff(ref, got):
                                                 float(ref.abs().max()))
 
 
-def chunked_path(dev):
-    """Phase 5: the scenario-chunked PH loop on the card. Returns the
-    operands block_scaling tiles, the block launches of its run, the
-    block's largest difference from its plain version at this path's
-    shapes and the list of failed checks; prints one JSON line."""
-    import numpy as np
-    import torch
-    from mpisppy_tpu_torch import obs
-    from mpisppy_tpu_torch.core.ph import PH
+def chunk_batch():
+    """The S = CHUNK_SCENARIOS reference-scale UC batch that the chunked
+    and df32 paths share (built once). Returns (batch, seconds)."""
     from mpisppy_tpu_torch.ir.batch import build_batch
     from mpisppy_tpu_torch.models import uc
-    from mpisppy_tpu_torch.ops.kernels import admm_block
-
     t0 = time.perf_counter()
     batch = build_batch(uc.scenario_creator, uc.make_tree(CHUNK_SCENARIOS),
                         creator_kwargs=SLICE_INSTANCE,
                         vector_patch=uc.scenario_vector_patch)
-    t_batch = time.perf_counter() - t0
+    return batch, time.perf_counter() - t0
+
+
+def chunked_path(dev, batch, t_batch):
+    """Phase 5: the scenario-chunked PH loop on the card. Returns the
+    operands block_scaling tiles, the block launches of its run, the
+    block's largest difference from its plain version at this path's
+    shapes, the run's iter-0 primal Eobjective and max pri_rel, its
+    Eobjective and trivial bound, and the list of failed checks; prints
+    one JSON line."""
+    import numpy as np
+    import torch
+    from mpisppy_tpu_torch import obs
+    from mpisppy_tpu_torch.core.ph import PH
+    from mpisppy_tpu_torch.ops.kernels import admm_block
+
     opts = {**PH_OPTS, "subproblem_chunk": CHUNK,
             "subproblem_hospital": False}
     on_card = torch.device(dev).type == "cuda"
@@ -712,8 +742,9 @@ def chunked_path(dev):
         "occupancy": {k: t["occupancy"] for k, t in timing.items()},
         "gate_d2h_syncs_per_call": {k: t["gate_d2h_syncs_per_call"]
                                     for k, t in timing.items()},
-        "iter0_max_pri_rel": pri0, "trivial_bound": tbound,
-        "eobjective": eobj, "conv": conv,
+        "iter0_max_pri_rel": pri0,
+        "iter0_eobjective": snap.iter0_eobjective,
+        "trivial_bound": tbound, "eobjective": eobj, "conv": conv,
         "retries": len(retries), "retry_events": retries,
         "blacklisted": blacklisted,
         "gate_syncs_total": counters.get("ph.gate_syncs"),
@@ -721,7 +752,10 @@ def chunked_path(dev):
         "demotions": len(demotions), "sum_p_W_max": w_sum,
         "peak_gb": peak_gb,
         "unchunked_max_rel_diff": {"xbar": d_xbar, "W": d_W}}))
-    return scaling_ops, launches, err, failures
+    native = {"iter0_eobjective": snap.iter0_eobjective,
+              "iter0_max_pri_rel": pri0, "eobjective": eobj,
+              "trivial_bound": tbound}
+    return scaling_ops, launches, err, native, failures
 
 
 def _scaling_operands(ph, states, ci):
@@ -765,16 +799,428 @@ def block_scaling(ops, steps=20, reps=2):
         ms = cuda_ms(lambda: admm_block.fused_admm_block(
             factors, d_s, q_s, st_s, n_steps=steps, sigma=factors.sigma,
             scen_tile=0), reps)
+        A, F = factors.A_s, st.L
+        w = torch.randn(S, m, dtype=A.dtype, device=A.device)
+        v = torch.randn(S, n, dtype=A.dtype, device=A.device)
+
+        def library():
+            # the step's three products as library calls
+            for _ in range(steps):
+                torch.matmul(w, A)
+                torch.matmul(v, F)
+                torch.matmul(v, A.T)
+
+        lib_ms = cuda_ms(library, reps)
         groups = -(-S // admm_block.SCEN_GROUP)
         stream_ms = groups * 8 * (2 * m * n + n * n) \
             / HBM_BYTES_PER_S * 1e3
+        # one step's floors: A and F read once, 2S(2mn + n²) f64 flops
+        bytes_ms = 8 * (m * n + n * n) / HBM_BYTES_PER_S * 1e3
+        ops_ms = 2 * S * (2 * m * n + n * n) / F64_FLOP_PER_S * 1e3
         rows.append({"S": S, "ms_per_call": ms, "ms_per_step": ms / steps,
                      "ms_per_scenario_step": ms / steps / S,
                      "groups": groups,
-                     "streaming_ms_per_step": stream_ms})
+                     "streaming_ms_per_step": stream_ms,
+                     "library_ms_per_step": lib_ms / steps,
+                     "bound_ms_per_step": max(bytes_ms, ops_ms),
+                     "bound_by": "bytes" if bytes_ms >= ops_ms
+                     else "operations",
+                     "byte_floor_ms_per_step": bytes_ms,
+                     "compute_floor_ms_per_step": ops_ms})
     admm_block.LAUNCHES = before   # timing launches are not the path's
     log(json.dumps({"phase": "block_scaling", "steps_per_call": steps,
                     "reps": reps, "rows": rows}))
+    return {r["S"]: r["ms_per_step"] for r in rows}
+
+
+# the JAX package's df32 recipe for the reference instance, bench.py's
+# DF32 dict unchanged (packed-f32 bulk, packed split-f32 IR tail, L⁻¹
+# products in the tail, hospital off)
+DF32 = {
+    "subproblem_precision": "df32",
+    "defaultPHrho": 100.0,
+    "subproblem_max_iter": 400,
+    "subproblem_eps": 1e-5,
+    "subproblem_eps_hot": 1e-4,
+    "subproblem_eps_dua_hot": 1e-2,
+    "subproblem_stall_rel": 1.5e-3,
+    "subproblem_tail_iter": 100,
+    "subproblem_segment": 100,
+    "subproblem_segment_lo": 400,
+    "subproblem_polish_hot": False,
+    "subproblem_hospital": False,
+    "display_timing": True,
+}
+# the JAX bench runs S = 1024 in chunks of 128; cut to the chunked
+# path's S = 40 in chunks of 16 for the run's time
+DF32_CHUNK = 16
+DF32_ITERS = 3
+# the engine's iter-0 feasibility gate as the JAX bench sets it beside
+# the DF32 dict (bench.py:640 for its PH hub, :697 for its gap warm-up)
+DF32_ITER0_TOL = 5e-3
+# rows per call of df32_scaling (beside block_scaling's native rows)
+DF32_SCALING_ROWS = (16, 128)
+# steps per timed df32 call (one residual check at the end)
+DF32_STEPS = 100
+# the split matvec's f32 floor, relative to each row's sum of |terms|
+SPLIT_FLOOR = 2e-6
+
+
+def _df32_operands(ph, ci=0):
+    """(factors, data, q, state) of the df32 engine's prox-on chunk
+    ``ci``, with the flowed factor (LInv or raw) of the last pass."""
+    from mpisppy_tpu_torch.core.ph import _ph_assemble
+    factors, data = ph._get_factors(True)
+    idx, _ = ph._chunk_index(DF32_CHUNK)[ci]
+    d = data._replace(l=data.l[idx], u=data.u[idx], lb=data.lb[idx],
+                      ub=data.ub[idx])
+    q, bl, bu = _ph_assemble(d, ph.c[idx], ph.W[idx], ph.xbar[idx],
+                             ph.rho[idx], ph.nonant_idx,
+                             ph._fixed_mask[idx], ph._fixed_vals[idx],
+                             None, w_on=True, prox_on=True)
+    return factors, d._replace(lb=bl, ub=bu), q, ph._chunk_states[True][ci]
+
+
+def packed_fault_check(factors, dev):
+    """The packed split matvec against the dense split matvec of the same
+    scaled matrix on the card, row by row against SPLIT_FLOOR x the row's
+    sum of |terms|, and a planted fault (one value of pk_hi changed by
+    1 %) that must read at least FAULT_MARGIN x that bar."""
+    import torch
+    from mpisppy_tpu_torch.ops import packed
+    from mpisppy_tpu_torch.ops import qp_solver as T
+    A = factors.A_s
+    m, n = A.shape
+    g = torch.Generator(device="cpu").manual_seed(11)
+    x = torch.randn(DF32_CHUNK, n, generator=g,
+                    dtype=torch.float64).to(dev)
+    xh, xl = T._split_vec(x)
+    dense = T._Ax(T.SplitMatrix(A.hi, A.lo), x)
+    scale = xh.abs() @ A.hi.abs().T
+
+    def worst(pk_hi):
+        got = packed.pk_Ax_split(pk_hi, A.pk_lo, xh, xl, m)
+        return float(((got - dense).abs() / scale.clamp(min=1e-300)).max())
+
+    ok = worst(A.pk_hi)
+    c, r, k = (int(v) for v in torch.nonzero(A.pk_hi.l_vals)[0])
+    vals = A.pk_hi.l_vals.clone()
+    vals[c, r, k] *= 1.01
+    hit = worst(A.pk_hi._replace(l_vals=vals))
+    row = {"check": "packed_vs_dense_split", "rows": DF32_CHUNK,
+           "worst_rel_to_row_abs_sum": ok, "bar": SPLIT_FLOOR,
+           "planted_fault_over_bar": hit / SPLIT_FLOOR,
+           "packed_mb": (packed.pk_nbytes(A.pk_hi)
+                         + packed.pk_nbytes(A.pk_lo)) / 1e6,
+           "dense_split_mb": 8 * m * n / 1e6}
+    log(json.dumps(row))
+    failures = []
+    if not ok <= SPLIT_FLOOR:
+        failures.append(f"packed split matvec differs from the dense one "
+                        f"by {ok:.3e} of the row sums (bar {SPLIT_FLOOR})")
+    if not hit >= FAULT_MARGIN * SPLIT_FLOOR:
+        failures.append(f"planted pk_hi fault reads only "
+                        f"{hit / SPLIT_FLOOR:.3g} x the bar")
+    return failures
+
+
+def df32_step_timing(factors, d, q, st, plan, reps=2, profile=False):
+    """CUDA-event ms of one chunk's df32 pieces: the split factorization,
+    the L⁻¹ build, a DF32_STEPS-step f32 bulk call and a DF32_STEPS-step
+    df32 tail call (fixed rho, no exit, one residual check), each beside
+    est_hbm_bytes_per_iter's byte model at the data-sheet bandwidth;
+    with ``profile``, the top kernels of each step by device time."""
+    import torch
+    from mpisppy_tpu_torch.ops import kernels, packed
+    from mpisppy_tpu_torch.ops import qp_solver as T
+    if torch.get_float32_matmul_precision() != "highest" \
+            or torch.backends.cuda.matmul.allow_tf32 is not False:
+        raise RuntimeError("TF32 is on: df32 needs true f32 products")
+    S = st.x.shape[0]
+    m, n = factors.A_s.shape
+    rho = st.rho_scale
+    L = T._factorize(factors, rho)
+    L_pair = T.make_l_inv(L)
+    kw = dict(max_iter=DF32_STEPS, check_every=DF32_STEPS, eps_abs=0.0,
+              eps_rel=0.0, adaptive_rho=False, polish=False)
+    lo = torch.float32
+    f_lo = T._cast_floats(factors._replace(A_s=None), lo)._replace(
+        A_s=plan.A_lo)
+    d_lo = T._cast_floats(d._replace(A=plan.A_lo), lo)
+    st_lo = T._cast_floats(st._replace(L=L), lo)
+    st_hi = st._replace(L=L_pair if plan.l_inv else L)
+    def bulk():
+        T.qp_solve(f_lo, d_lo, q.to(lo), st_lo, **kw)
+
+    def tail():
+        T.qp_solve(factors, d, q, st_hi, **kw)
+
+    fac_ms = cuda_ms(lambda: T._factorize(factors, rho), reps)
+    linv_ms = cuda_ms(lambda: T.make_l_inv(L), reps)
+    bulk_ms = cuda_ms(bulk, reps) / DF32_STEPS
+    tail_ms = cuda_ms(tail, reps) / DF32_STEPS
+    pk_bytes = packed.pk_nbytes(factors.A_s.pk_hi) \
+        + packed.pk_nbytes(factors.A_s.pk_lo)
+    model = kernels.est_hbm_bytes_per_iter(
+        n=n, m=m, s_chunk=S, pk_pass_bytes=pk_bytes)
+    # the factorization reads the dense hi once and writes an n x n
+    # factor; the L⁻¹ build reads and writes one n x n f32 matrix
+    fac_bytes = 4 * m * n + 4 * n * n
+    return {"rows": S, "factorize_ms": fac_ms,
+            "factorize_model_ms": fac_bytes / HBM_BYTES_PER_S * 1e3,
+            "l_inv_build_ms": linv_ms,
+            "l_inv_model_ms": 8 * n * n / HBM_BYTES_PER_S * 1e3,
+            "bulk_ms_per_step": bulk_ms,
+            "bulk_model_ms_per_step": model["bulk"] / HBM_BYTES_PER_S * 1e3,
+            "tail_ms_per_step": tail_ms,
+            "tail_model_ms_per_step": model["tail"] / HBM_BYTES_PER_S * 1e3,
+            "model_bytes": model, "packed_pass_bytes": pk_bytes,
+            "device_ms_per_step_by_kernel": {
+                "bulk": _top_kernels(bulk, DF32_STEPS),
+                "tail": _top_kernels(tail, DF32_STEPS)} if profile else None}
+
+
+def _top_kernels(fn, steps, top=8):
+    """The ``top`` CUDA kernels of one call of ``fn`` by device time,
+    in ms per step (torch.profiler)."""
+    rows = sorted(kernel_breakdown(fn).items(), key=lambda kv: -kv[1]["ms"])
+    return {k: {"ms_per_step": v["ms"] / steps, "calls": v["calls"]}
+            for k, v in rows[:top]}
+
+
+def native_reference(dev, batch):
+    """Phase 7a: the native chunked PH loop on the same batch and for
+    the same iterations as df32_path, on the reference backend (rho
+    adapts; the chunked path's block holds rho fixed for its whole
+    budget, so its objectives depend on that budget: on UC 10 x 24 its
+    iter-0 Eobjective reads 22 % above the optimum in both packages,
+    tests/test_torch_df32_recipe.py). Returns (iter-0 primal
+    Eobjective, iter-0 max pri_rel, certified trivial bound,
+    Eobjective); prints one JSON line."""
+    import torch
+    from mpisppy_tpu_torch.core.ph import PH
+    from mpisppy_tpu_torch.ops.kernels import admm_block
+
+    opts = {**PH_OPTS, "subproblem_chunk": DF32_CHUNK,
+            "subproblem_hospital": False,
+            "subproblem_kernel_backend": "reference",
+            "PHIterLimit": DF32_ITERS}
+    it_log = IterLog()
+    launches = admm_block.LAUNCHES
+    ph = PH(batch, opts, device=dev, extensions=it_log)
+    t0 = it_log.t0 = time.perf_counter()
+    conv, eobj, tbound = ph.ph_main()
+    _sync()
+    t_main = time.perf_counter() - t0
+    admm_block.LAUNCHES = launches
+    pri0 = float(ph._qp_states[False].pri_rel.max())
+    row = {"phase": "native_reference", "S": batch.S, "chunk": DF32_CHUNK,
+           "backend": "reference", "ph_main_s": t_main,
+           "iterations": it_log.rows,
+           "iter0_max_pri_rel": pri0,
+           "iter0_eobjective": it_log.iter0_eobjective,
+           "trivial_bound": tbound, "eobjective": eobj, "conv": conv,
+           "plans": sorted({p.backend for p in ph._kernel_plans.values()})}
+    log(json.dumps(row))
+    del ph
+    gc.collect()
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    return row
+
+
+def df32_path(dev, batch, native, ref):
+    """Phase 7b: the JAX bench's df32 recipe through PH(...).ph_main() on
+    the chunked path's batch, held to: the engine's own iter-0 gate
+    (raised inside ph_main, at the bench's DF32_ITER0_TOL), post-solve
+    prox-on max pri_rel below 5e-3, an Eobjective within 2e-2 relative
+    of the native reference-backend run's (``ref``, native_reference),
+    a certified trivial bound at most each native run's iter-0 primal
+    Eobjective (``native``: the chunked path's; and ``ref``'s) plus 1e-4
+    relative, no launch of the ADMM block, the view swap and the packed
+    split matvec on the card (packed_fault_check). Returns the engine
+    and its failed checks; prints one JSON line."""
+    import numpy as np
+    import torch
+    from mpisppy_tpu_torch import obs
+    from mpisppy_tpu_torch.core.ph import PH
+    from mpisppy_tpu_torch.ops import qp_solver as T
+    from mpisppy_tpu_torch.ops.kernels import admm_block
+
+    opts = {**DF32, "subproblem_chunk": DF32_CHUNK,
+            "PHIterLimit": DF32_ITERS, "iter0_feas_tol": DF32_ITER0_TOL}
+    it_log = IterLog()
+    on_card = torch.device(dev).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ph = PH(batch, opts, device=dev, extensions=it_log)
+    _sync()
+    t_ship = time.perf_counter() - t0
+    raw_split = isinstance(ph.qp_data.A, T.SplitMatrix) \
+        and ph.qp_data.A.struct is not None
+    obs.configure()
+    admm_block.LAUNCHES = 0
+    t0 = it_log.t0 = time.perf_counter()
+    conv, eobj, tbound = ph.ph_main()
+    _sync()
+    t_main = time.perf_counter() - t0
+    launches = admm_block.LAUNCHES
+    counters = obs.counters_snapshot()
+    retries = [e[1] for e in obs.events("ph.chunk_retry")]
+    obs.shutdown()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    pri0 = float(ph._qp_states[False].pri_rel.max())
+    pri_on = float(ph._qp_states[True].pri_rel.max())
+    timing = ph.phase_timing(True)
+    plan = ph._kernel_plans[True]
+    failures = []
+    if not raw_split:
+        failures.append("the df32 engine did not ship a packed split A")
+    if not isinstance(ph.qp_data.A, T.ScaledView):
+        failures.append("the engine's A was not swapped for the view")
+    if launches != 0:
+        failures.append(f"admm_block launched {launches} times on the "
+                        "df32 path (df32 never enters the block)")
+    if not pri_on < 5e-3:
+        failures.append(f"post-solve prox-on max pri_rel {pri_on:.3e} "
+                        "is not below 5e-3")
+    eobj_rel = (eobj - ref["eobjective"]) / abs(ref["eobjective"])
+    if not abs(eobj_rel) <= 2e-2:
+        failures.append(f"Eobjective {eobj:.6f} is {eobj_rel:+.3e} "
+                        "relative to the native reference run's "
+                        f"{ref['eobjective']:.6f} (band 2e-2)")
+    for name, run in (("chunked path", native), ("reference run", ref)):
+        primal = run["iter0_eobjective"]
+        if not tbound <= primal + 1e-4 * abs(primal):
+            failures.append(f"certified trivial bound {tbound:.6f} "
+                            f"exceeds the native {name}'s iter-0 primal "
+                            f"Eobjective {primal:.6f} (+1e-4 rel)")
+    if not all(np.isfinite(v) for v in
+               [tbound, eobj, conv] + [r["conv"] for r in it_log.rows]):
+        failures.append("non-finite bound, Eobjective or conv")
+    factors, _ = ph._get_factors(True)
+    failures += packed_fault_check(factors, dev)
+    ops = _df32_operands(ph)
+    breakdown = df32_step_timing(*ops, plan, profile=on_card)
+    log(json.dumps({
+        "phase": "df32_path", "S": batch.S, "chunk": DF32_CHUNK,
+        "reduced": "S 1024 -> 40, chunk 128 -> 16 (the JAX bench's "
+                   "uc1024 cell; cut for the run's time)",
+        "options": opts, "ship_s": t_ship, "ph_main_s": t_main,
+        "iterations": it_log.rows,
+        "ph_s_per_iteration": [r["seconds"] for r in it_log.rows],
+        "phase_seconds": timing["seconds_per_call"],
+        "gate_d2h_syncs_per_call": timing["gate_d2h_syncs_per_call"],
+        "iter0_max_pri_rel": pri0, "iter0_gate": "passed",
+        "iter0_gate_tol": DF32_ITER0_TOL,
+        "post_solve_max_pri_rel": pri_on, "trivial_bound": tbound,
+        "iter0_eobjective": it_log.iter0_eobjective, "eobjective": eobj,
+        "eobjective_rel_to_native_reference": eobj_rel,
+        "native_iter0_eobjective": {
+            "chunked_path": native["iter0_eobjective"],
+            "reference_run": ref["iter0_eobjective"]},
+        "native_trivial_bound": {
+            "chunked_path": native["trivial_bound"],
+            "reference_run": ref["trivial_bound"]},
+        "native_eobjective": {"chunked_path": native["eobjective"],
+                              "reference_run": ref["eobjective"]},
+        "conv": [r["conv"] for r in it_log.rows],
+        "retries": len(retries), "retry_events": retries,
+        "l_inv_factorizations": counters.get(
+            "kernel.l_inv_factorizations", 0),
+        "plan": plan.descriptor(), "peak_gb": peak_gb,
+        "admm_block_launches": launches, "breakdown": breakdown}))
+    return ph, failures
+
+
+def df32_scaling(ph, native_ms_per_step):
+    """Phase 8: one prox-on df32 chunk's operands tiled to each row count
+    of DF32_SCALING_ROWS: ms per f32 bulk step and per df32 tail step,
+    and one whole fused solve call at the recipe's budgets with the
+    polish off, beside block_scaling's native ms per step."""
+    import torch
+    from mpisppy_tpu_torch.ops import kernels
+    factors, d, q, st = _df32_operands(ph)
+    S0 = st.x.shape[0]
+    rows = []
+    for S in DF32_SCALING_ROWS:
+        rep = -(-S // S0)
+
+        def tile(t, S=S, rep=rep):
+            return t.repeat((rep,) + (1,) * (t.ndim - 1))[:S].contiguous()
+
+        d_s = d._replace(l=tile(d.l), u=tile(d.u), lb=tile(d.lb),
+                         ub=tile(d.ub))
+        st_s = st._replace(x=tile(st.x), yA=tile(st.yA), yB=tile(st.yB),
+                           zA=tile(st.zA), zB=tile(st.zB),
+                           pri_res=tile(st.pri_res),
+                           dua_res=tile(st.dua_res),
+                           pri_rel=tile(st.pri_rel),
+                           dua_rel=tile(st.dua_rel))
+        q_s = tile(q)
+        plan_s = kernels.prepare(
+            factors, mode="fused", l_inv=ph.sub_kernel_l_inv,
+            precision="df32", tail_iter=DF32["subproblem_tail_iter"],
+            s_chunk=S)
+        row = df32_step_timing(factors, d_s, q_s, st_s, plan_s)
+
+        def call():
+            kernels.kernel_solve(
+                plan_s, factors, d_s, q_s, st_s, precision="df32",
+                max_iter=DF32["subproblem_max_iter"],
+                tail_iter=DF32["subproblem_tail_iter"],
+                e_pri=DF32["subproblem_eps_hot"],
+                e_dua=DF32["subproblem_eps_dua_hot"],
+                stall_rel=DF32["subproblem_stall_rel"], polish=False,
+                polish_chunk=0, ir_sweeps=1)
+
+        t0 = time.perf_counter()
+        call()
+        _sync()
+        row["fused_call_s"] = time.perf_counter() - t0
+        row["l_inv"] = plan_s.l_inv
+        row["native_block_ms_per_step"] = native_ms_per_step.get(S)
+        rows.append(row)
+    log(json.dumps({"phase": "df32_scaling",
+                    "steps_per_timed_call": DF32_STEPS, "rows": rows}))
+
+
+# the mixed check: fused against segmented, one PH iteration on a small
+# UC in chunks (tests/test_torch_mixed_ph.py states the bar)
+MIXED_CHECK = {"defaultPHrho": 50.0, "PHIterLimit": 1, "convthresh": -1.0,
+               "subproblem_precision": "mixed", "subproblem_chunk": 3,
+               "subproblem_max_iter": 1000, "subproblem_tail_iter": 1000,
+               "subproblem_segment": 1000, "subproblem_eps": 1e-6}
+MIXED_BAR = 1e-10
+
+
+def mixed_check(dev):
+    """Phase 9: one fused and one segmented mixed PH iteration (iter 0
+    and one prox-on solve) on UC 3 x 6, S = 8 in chunks of 3: x̄ and W
+    must agree to MIXED_BAR x max(1, |.|)."""
+    from mpisppy_tpu_torch.core.ph import PH
+    from mpisppy_tpu_torch.ir.batch import build_batch
+    from mpisppy_tpu_torch.models import uc
+    out = {}
+    for mode in ("fused", "segmented"):
+        b = build_batch(uc.scenario_creator, uc.make_tree(8),
+                        creator_kwargs={"num_gens": 3, "num_hours": 6},
+                        vector_patch=uc.scenario_vector_patch)
+        ph = PH(b, {**MIXED_CHECK, "subproblem_kernel_mode": mode},
+                device=dev)
+        ph.ph_main()
+        _sync()
+        out[mode] = ph
+    d_xbar = _max_rel_diff(out["segmented"].xbar, out["fused"].xbar)
+    d_W = _max_rel_diff(out["segmented"].W, out["fused"].W)
+    log(json.dumps({"check": "mixed_fused_vs_segmented", "S": 8,
+                    "chunk": 3, "xbar_max_rel_diff": d_xbar,
+                    "W_max_rel_diff": d_W, "bar": MIXED_BAR,
+                    "on": str(out["fused"].xbar.device)}))
+    if not (d_xbar <= MIXED_BAR and d_W <= MIXED_BAR):
+        raise RuntimeError(f"mixed fused differs from segmented: x̄ "
+                           f"{d_xbar:.3e}, W {d_W:.3e} (bar {MIXED_BAR})")
 
 
 def main():
@@ -805,10 +1251,24 @@ def main():
     del ph
     gc.collect()
     torch.cuda.empty_cache()
-    scaling_ops, chunk_launches, chunk_err, failures = chunked_path(dev)
-    block_scaling(scaling_ops)
+    batch, t_batch = chunk_batch()
+    scaling_ops, chunk_launches, chunk_err, native, failures = \
+        chunked_path(dev, batch, t_batch)
+    native_ms = block_scaling(scaling_ops)
     if failures:
         raise RuntimeError("chunked path failed: " + "; ".join(failures))
+    del scaling_ops
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref = native_reference(dev, batch)
+    ph, failures = df32_path(dev, batch, native, ref)
+    if failures:
+        raise RuntimeError("df32 path failed: " + "; ".join(failures))
+    df32_scaling(ph, native_ms)
+    del ph, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    mixed_check(dev)
     launches += chunk_launches
     # the largest difference at any shape of the path
     timing["max_abs_err"] = max(timing["max_abs_err"], chunk_err)

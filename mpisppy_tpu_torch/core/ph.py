@@ -1,5 +1,5 @@
 """Progressive Hedging: PHBase primitives + the synchronous PH driver
-(the port of mpisppy_tpu/core/ph.py, native precision, one device).
+(the port of mpisppy_tpu/core/ph.py, one device).
 
 One PH iteration over the whole scenario batch runs three stages:
   1. assemble: the objective rewrite f_s(x) + w_on·Wᵀx + prox_on·ρ/2‖x−x̄‖²
@@ -19,6 +19,13 @@ chunks that share one factor (``_solve_loop_chunked``): one solve call
 per chunk, one stacked residual read per iteration for the recovery
 gate, bounded chunk retries with blacklists, the per-scenario hospital,
 then one global x̄/W reduction.
+
+Precision (``subproblem_precision``): ``native`` iterates in f64;
+``mixed`` runs an f32 bulk then an f64 tail; ``df32`` additionally
+ships a shared A as the split-f32 pair (core/spbase), every mode shares
+one equilibration and scaled split, the engine's QPData.A becomes a
+ScaledView over it, and the chunked loop flows one (rho_scale, factor)
+pair from chunk to chunk.
 """
 
 from __future__ import annotations
@@ -31,9 +38,11 @@ import torch
 
 from .. import global_toc, obs
 from ..ir.batch import ScenarioBatch
-from ..ops.qp_solver import (QPData, qp_cold_state,
-                             qp_dual_objective, qp_reset_rho, qp_setup,
-                             qp_solve_segmented, stacked_residuals)
+from ..ops.qp_solver import (QPData, ScaledView, SplitMatrix,
+                             qp_cold_state, qp_dual_objective,
+                             qp_reset_rho, qp_setup, qp_setup_like,
+                             qp_solve_mixed, qp_solve_segmented,
+                             stacked_residuals)
 from .spbase import SPBase, compute_xbar
 
 _log = logging.getLogger("mpisppy_tpu_torch.ph")
@@ -122,14 +131,17 @@ def _hot_eps(prox_on, sub_eps, sub_eps_hot):
 def _solver_call(factors, d, q, qp_state, *, prox_on, precision,
                  sub_max_iter, sub_eps, sub_eps_hot, sub_eps_dua_hot,
                  stall_rel, segment, polish_hot, polish_chunk, tail_iter=0,
-                 ir_sweeps=1, kernel=None, adaptive_rho=True):
+                 segment_lo=None, ir_sweeps=1, kernel=None,
+                 adaptive_rho=True):
     """The precision-policy + solver dispatch. Prox-on solves may use
     loosened hot-loop tolerances and skip the polish
     (subproblem_polish_hot=False); prox-off solves always polish (their
-    duals certify bounds). A fused ``kernel`` plan routes the solve
-    through ops/kernels.kernel_solve; otherwise (``kernel=None``, as
-    every chunk retry and hospital solve passes) the host-segmented
-    driver runs."""
+    duals certify bounds; a df32 solve has no polish). A fused
+    ``kernel`` plan routes the solve through ops/kernels.kernel_solve;
+    otherwise (``kernel=None``, as every chunk retry and hospital solve
+    passes) the host-segmented drivers run: qp_solve_mixed for
+    mixed/df32 (the f32 bulk + accurate tail; df32 differs only in the
+    data representation), qp_solve_segmented for native."""
     e_pri = _hot_eps(prox_on, sub_eps, sub_eps_hot)
     e_dua = sub_eps_dua_hot if (prox_on and sub_eps_dua_hot is not None) \
         else sub_eps
@@ -142,21 +154,33 @@ def _solver_call(factors, d, q, qp_state, *, prox_on, precision,
             e_dua=e_dua, stall_rel=stall_rel, polish=do_polish,
             polish_chunk=polish_chunk, ir_sweeps=ir_sweeps,
             adaptive_rho=adaptive_rho)
+    if precision in ("mixed", "df32"):
+        return qp_solve_mixed(factors, d, q, qp_state,
+                              max_iter=sub_max_iter, tail_iter=tail_iter,
+                              eps_abs=e_pri, eps_rel=e_pri,
+                              polish_chunk=polish_chunk,
+                              eps_abs_dua=e_dua, eps_rel_dua=e_dua,
+                              stall_rel=stall_rel, segment=segment,
+                              segment_lo=segment_lo, polish=do_polish,
+                              ir_sweeps=ir_sweeps,
+                              adaptive_rho=adaptive_rho)
     return qp_solve_segmented(factors, d, q, qp_state,
                               max_iter=sub_max_iter, segment=segment,
                               eps_abs=e_pri, eps_rel=e_pri,
                               polish_chunk=polish_chunk,
                               eps_abs_dua=e_dua, eps_rel_dua=e_dua,
                               stall_rel=stall_rel, polish=do_polish,
+                              ir_sweeps=ir_sweeps,
                               adaptive_rho=adaptive_rho)
 
 
 def _ph_step(qp_state, factors, data, c, c0, P0, prob, xbar_w, memberships,
              idx, W, xbar, rho, fixed_mask, fixed_vals, wscale=None, *,
              w_on, prox_on, slot_slices, sub_max_iter, sub_eps,
-             polish_chunk, precision="native", sub_eps_hot=None,
-             sub_eps_dua_hot=None, stall_rel=0.0, segment=500,
-             polish_hot=True, ir_sweeps=1, lap=None, kernel=None):
+             polish_chunk, precision="native", tail_iter=1000,
+             sub_eps_hot=None, sub_eps_dua_hot=None, stall_rel=0.0,
+             segment=500, polish_hot=True, segment_lo=None, ir_sweeps=1,
+             lap=None, kernel=None):
     """The PH iteration: assemble, batched solve, reduce."""
     q, bl, bu = _ph_assemble(data, c, W, xbar, rho, idx, fixed_mask,
                              fixed_vals, wscale, w_on=w_on,
@@ -169,7 +193,8 @@ def _ph_step(qp_state, factors, data, c, c0, P0, prob, xbar_w, memberships,
         sub_max_iter=sub_max_iter, sub_eps=sub_eps,
         sub_eps_hot=sub_eps_hot, sub_eps_dua_hot=sub_eps_dua_hot,
         stall_rel=stall_rel, segment=segment, polish_hot=polish_hot,
-        polish_chunk=polish_chunk, ir_sweeps=ir_sweeps, kernel=kernel)
+        polish_chunk=polish_chunk, tail_iter=tail_iter,
+        segment_lo=segment_lo, ir_sweeps=ir_sweeps, kernel=kernel)
     if kernel is not None and kernel.mode == "fused" and obs.enabled():
         obs.counter_add("kernel.fused_iters", int(qp_state.iters))
     if lap is not None:
@@ -235,8 +260,13 @@ class PHBase(SPBase):
         self.verbose = bool(opts.get("verbose", False))
         self.sub_max_iter = int(opts.get("subproblem_max_iter", 5000))
         self.sub_eps = float(opts.get("subproblem_eps", 1e-8))
+        # "native": solve at self.dtype; "mixed": f32 bulk + f64 tail;
+        # "df32": mixed over the split-f32 A (core/spbase)
         self.sub_precision = str(opts.get("subproblem_precision", "native"))
-        # the df32/mixed tail budget; native precision reads it only for
+        if self.sub_precision not in ("native", "mixed", "df32"):
+            raise ValueError(f"unknown subproblem_precision "
+                             f"{self.sub_precision!r}")
+        # the mixed/df32 tail budget; native precision reads it only for
         # the chunk-retry budget (as the JAX package does)
         self.sub_tail_iter = int(opts.get("subproblem_tail_iter", 1000))
         _h = opts.get("subproblem_eps_hot", None)
@@ -245,34 +275,49 @@ class PHBase(SPBase):
         self.sub_eps_dua_hot = None if _hd is None else float(_hd)
         self.sub_stall_rel = float(opts.get("subproblem_stall_rel", 0.0))
         self.sub_segment = int(opts.get("subproblem_segment", 500))
+        # the f32 bulk's segment of the segmented mixed driver
+        _sl = opts.get("subproblem_segment_lo", None)
+        self.sub_segment_lo = None if _sl is None else int(_sl)
         self.sub_ir_sweeps = int(opts.get("subproblem_ir_sweeps", 1))
         self.sub_polish_hot = bool(opts.get("subproblem_polish_hot", True))
         self.sub_polish_chunk = int(opts.get("subproblem_polish_chunk", 0))
         from ..utils.config import (FUSED_IR_SWEEPS, KERNEL_BACKENDS,
-                                    KERNEL_MODES)
+                                    KERNEL_BLOCK_DTYPES,
+                                    KERNEL_L_INV_MODES, KERNEL_MODES)
         self.sub_kernel_mode = str(opts.get("subproblem_kernel_mode",
                                             "auto"))
         self.sub_kernel_backend = str(opts.get("subproblem_kernel_backend",
                                                "reference"))
+        self.sub_kernel_l_inv = str(opts.get("subproblem_kernel_l_inv",
+                                             "auto"))
+        block_dtype = str(opts.get("subproblem_kernel_block_dtype",
+                                   "auto"))
         for val, known, name in (
                 (self.sub_kernel_mode, KERNEL_MODES, "mode"),
-                (self.sub_kernel_backend, KERNEL_BACKENDS, "backend")):
+                (self.sub_kernel_backend, KERNEL_BACKENDS, "backend"),
+                (self.sub_kernel_l_inv, KERNEL_L_INV_MODES, "l_inv"),
+                (block_dtype, KERNEL_BLOCK_DTYPES, "block_dtype")):
             if val not in known:
                 raise ValueError(f"unknown subproblem_kernel_{name} "
                                  f"{val!r}; known: {known}")
+        if block_dtype == "bf16":
+            # the bulk's packed blocks stay f32 ("auto" and "f32")
+            raise _not_ported("bf16 packed blocks for the mixed/df32 bulk")
         if self.sub_kernel_mode == "fused" \
                 and self.sub_ir_sweeps not in FUSED_IR_SWEEPS:
             raise ValueError(
                 f"subproblem_kernel_mode='fused' supports "
                 f"subproblem_ir_sweeps in [{FUSED_IR_SWEEPS.start}, "
                 f"{FUSED_IR_SWEEPS.stop - 1}]; got {self.sub_ir_sweeps}")
-        if self.sub_precision != "native":
-            raise _not_ported(
-                f"subproblem_precision={self.sub_precision!r} (the "
-                "df32/mixed slice)")
+        if self.sub_precision in ("mixed", "df32") \
+                and self.dtype != torch.float64:
+            raise ValueError(f"subproblem_precision={self.sub_precision!r}"
+                             f" needs dtype=float64; got {self.dtype}")
         if opts.get("shrink_fix") or opts.get("shrink_compact") \
                 or opts.get("shrink_rho"):
-            raise _not_ported("problem shrinking")
+            with_prec = "" if self.sub_precision == "native" else \
+                f" with subproblem_precision={self.sub_precision!r}"
+            raise _not_ported("problem shrinking" + with_prec)
         self._kernel_plans = {}
         self.rho_setter = rho_setter
         self.extensions = extensions
@@ -295,6 +340,9 @@ class PHBase(SPBase):
         self._iter = 0
         self.best_bound = -float("inf")
         self._factors = {}       # prox_on -> (QPFactors, QPData)
+        # df32: the first mode's split factors, whose equilibration and
+        # scaled split every later mode shares (qp_setup_like)
+        self._split_base = None
         # prox_on -> QPState (a _ChunkStateView in chunked mode)
         self._qp_states = {}
         # prox_on -> the per-chunk QPStates of chunked mode
@@ -351,26 +399,50 @@ class PHBase(SPBase):
 
     def _get_factors(self, prox_on: bool):
         """Cached per-mode factorization (invalidated on rho change).
-        Each mode runs its own setup (equilibration + scaled matrix);
-        the cached tensors are never written in place."""
+        Each mode runs its own setup (equilibration + scaled matrix),
+        except in df32: there every mode shares ONE equilibration and
+        scaled split (qp_setup_like over the first mode's factors),
+        since another (m, n) split pair per mode would cost gigabytes
+        at the scale the representation exists for, and the engine's
+        raw split A is swapped for a ScaledView over the scaled one, so
+        the raw pair frees. The cached tensors are never written in
+        place."""
         key = bool(prox_on)
         if key not in self._factors:
             d = self._data_with_prox(prox_on)
-            self._factors[key] = (qp_setup(d, q_ref=self.c), d)
+            base = self._split_base
+            if base is not None:
+                fac = qp_setup_like(base, d)
+            else:
+                fac = qp_setup(d, q_ref=self.c)
+                if isinstance(fac.A_s, SplitMatrix):
+                    self._split_base = fac
+            if isinstance(fac.A_s, SplitMatrix) \
+                    and isinstance(self.qp_data.A, SplitMatrix):
+                view = ScaledView(fac.A_s, fac.D, fac.E)
+                self.qp_data = self.qp_data._replace(A=view)
+                d = d._replace(A=view)
+            self._factors[key] = (fac, d)
         return self._factors[key]
 
-    def _kernel_plan(self, key, factors):
+    def _kernel_plan(self, key, factors, s_chunk=None):
         """Cached ops/kernels plan for one mode's factors (invalidated
-        with them). Native precision has no per-chunk-size decision, so
-        one plan serves chunked and unchunked calls alike."""
+        with them). ``s_chunk`` (rows per solve call, default S) enters
+        the L⁻¹ verdict of mixed/df32; a mode's calls always have one
+        row count (chunked or not is fixed per engine), so the mode key
+        suffices."""
         plan = self._kernel_plans.get(key)
         if plan is None:
+            s_chunk = self.batch.S if s_chunk is None else s_chunk
             from ..ops import kernels
+            tail = self.sub_tail_iter \
+                if self.sub_precision in ("mixed", "df32") else 0
             plan = kernels.prepare(
                 factors, mode=self.sub_kernel_mode,
                 backend=self.sub_kernel_backend,
-                precision=self.sub_precision,
-                ir_sweeps=self.sub_ir_sweeps)
+                l_inv=self.sub_kernel_l_inv,
+                precision=self.sub_precision, tail_iter=tail,
+                ir_sweeps=self.sub_ir_sweeps, s_chunk=s_chunk)
             self._kernel_plans[key] = plan
         return plan
 
@@ -514,10 +586,12 @@ class PHBase(SPBase):
             slot_slices=self.slot_bounds,
             sub_max_iter=self.sub_max_iter, sub_eps=self.sub_eps,
             polish_chunk=self.sub_polish_chunk,
-            precision=self.sub_precision, sub_eps_hot=self.sub_eps_hot,
+            precision=self.sub_precision, tail_iter=self.sub_tail_iter,
+            sub_eps_hot=self.sub_eps_hot,
             sub_eps_dua_hot=self.sub_eps_dua_hot,
             stall_rel=self.sub_stall_rel, segment=self.sub_segment,
-            polish_hot=self.sub_polish_hot, ir_sweeps=self.sub_ir_sweeps,
+            polish_hot=self.sub_polish_hot,
+            segment_lo=self.sub_segment_lo, ir_sweeps=self.sub_ir_sweeps,
             lap=_lap, kernel=plan)
         self._qp_states[skey] = qp_state
         self.x, self.yA, self.yB = x, yA, yB
@@ -564,7 +638,8 @@ class PHBase(SPBase):
                 "gain nothing from chunking)")
         slices = self._chunk_index(chunk)
         states = self._ensure_chunk_states(key, factors, data, slices)
-        plan = self._kernel_plan(key, factors)
+        plan = self._kernel_plan(key, factors, chunk)
+        split_mode = isinstance(factors.A_s, SplitMatrix)
         kw = dict(prox_on=key, precision=self.sub_precision,
                   sub_max_iter=self.sub_max_iter, sub_eps=self.sub_eps,
                   sub_eps_hot=self.sub_eps_hot,
@@ -573,6 +648,7 @@ class PHBase(SPBase):
                   stall_rel=self.sub_stall_rel, segment=self.sub_segment,
                   polish_hot=self.sub_polish_hot,
                   polish_chunk=self.sub_polish_chunk,
+                  segment_lo=self.sub_segment_lo,
                   ir_sweeps=self.sub_ir_sweeps, kernel=plan)
         pipeline = bool(int(self.options.get("subproblem_pipeline", 1)))
         ent = self._phase_times.setdefault(
@@ -615,6 +691,7 @@ class PHBase(SPBase):
 
         # pass 1 — SOLVE
         solved_chunks = [None] * len(slices)
+        prev_st = None
         for ci in range(len(slices)):
             if pipeline:
                 d_c, q_c = inputs[ci]
@@ -626,14 +703,28 @@ class PHBase(SPBase):
                 dt_a = _time.perf_counter() - t_a
                 acc["assemble"] += dt_a
                 t_mark += dt_a
+            st_in = states[ci]
+            if split_mode and prev_st is not None:
+                # df32: chunks FLOW one (rho_scale, factor) pair through
+                # the sequential loop, each chunk inheriting the previous
+                # chunk's adapted stepsize, instead of holding a private
+                # (n, n) factor per chunk. rho is a stepsize: iterates
+                # warm-start across scale changes.
+                st_in = st_in._replace(L=prev_st.L,
+                                       rho_scale=prev_st.rho_scale)
             t_c = _time.perf_counter()
-            st, x, yA, yB = _solver_call(factors, d_c, q_c, states[ci],
-                                         **kw)
+            st, x, yA, yB = _solver_call(factors, d_c, q_c, st_in, **kw)
             if obs.enabled():
                 obs.complete_span(
                     "ph.solve.chunk", t_c, _time.perf_counter(),
                     cat="ph", args={"chunk": ci, "mode": sp_args["mode"],
                                     "devices": 1})
+            prev_st = st
+            if split_mode:
+                # record a STRIPPED state: each chunk's factor kept until
+                # pass 3 would pin every refactorized copy at once (the
+                # unify below re-attaches the flowed one)
+                st = st._replace(L=None)
             solved_chunks[ci] = [st, x, yA, yB, d_c, q_c, factors]
         if plan.mode == "fused":
             # phase honesty: fused solves never block mid-solve, so
@@ -713,6 +804,10 @@ class PHBase(SPBase):
             obs.event("ph.chunk_retry",
                       {"chunk": ci, "nan": is_nan, "pri_rel_before": m,
                        "pri_rel_after": m2})
+            if split_mode:
+                # retry factors are transient too (see the pass-1 strip)
+                st2 = st2._replace(L=None)
+                st_r = st_r._replace(L=None)
             if np.isfinite(m2) and (is_nan or m2 < m):
                 rec[:4] = [st2, x2, yA2, yB2]
                 pri_host[ci] = pri2
@@ -723,8 +818,12 @@ class PHBase(SPBase):
                 pri_host[ci] = np.inf
             if not (m2 <= thr):
                 no_retry.add(ci)
-        # pass 2b — the scenario hospital
-        if bool(self.options.get("subproblem_hospital", True)):
+        # pass 2b — the scenario hospital. Not for split data: its
+        # per-scenario (cap, m, n) batched factors are what the df32
+        # representation exists to avoid; df32 relies on chunk retries
+        # and blacklist re-admission
+        if bool(self.options.get("subproblem_hospital", True)) \
+                and not isinstance(data.A, (SplitMatrix, ScaledView)):
             gate_syncs += self._hospitalize(key, slices, solved_chunks,
                                             data, thr, bool(w_on), key,
                                             kw, pri_host=pri_host)
@@ -770,6 +869,14 @@ class PHBase(SPBase):
                          ("base", base), ("solved", solved),
                          ("dual", dual)):
                 parts[k].append(v[:real])
+        if split_mode and prev_st is not None:
+            # UNIFY after the pass: every chunk state adopts the flow's
+            # final (rho_scale, factor), so ONE factor persists between
+            # passes (at most two are alive during one: the inherited one
+            # and, briefly, a refactorized successor)
+            for ci in range(len(states)):
+                states[ci] = states[ci]._replace(
+                    L=prev_st.L, rho_scale=prev_st.rho_scale)
         cat = {k: torch.cat(v) for k, v in parts.items()}
         self._qp_states[key] = _ChunkStateView(
             states, [real for _, real in slices])

@@ -15,13 +15,31 @@ import numpy as np
 import torch
 
 from ..ir.batch import ScenarioBatch
-from ..ops.qp_solver import QPData
+from ..ops.qp_solver import QPData, SplitMatrix, split_f32_np
 from ..utils.runtime import DTYPE, resolve_device
 
 
 def ship_stacked(a_np, dtype, device):
     """(S, ...) stacked host array -> device tensor of ``dtype``."""
     return torch.as_tensor(np.asarray(a_np), dtype=dtype).to(device)
+
+
+def ship_shared_matrix(A2d, dtype, device, split=False):
+    """Shared (m, n) constraint matrix -> device tensor, or the df32
+    SplitMatrix pair with its packed structure: the host structure
+    analysis (ops/packed.analyze_structure) runs here, while the
+    sparsity pattern is in hand, and ships as index arrays that
+    qp_setup turns into the packed matvec form. No f64 copy of a split
+    matrix ever reaches the device."""
+    A = np.asarray(A2d)
+    if not split:
+        return ship_stacked(A, dtype, device)
+    from ..ops.packed import analyze_structure
+    rows, cols = np.nonzero(A)
+    struct = analyze_structure(rows, cols, A.shape[0], A.shape[1])
+    hi_np, lo_np = split_f32_np(A)
+    return SplitMatrix(torch.as_tensor(hi_np).to(device),
+                       torch.as_tensor(lo_np).to(device), struct=struct)
 
 
 def compute_xbar(memberships, slot_slices, weights, xn):
@@ -91,7 +109,14 @@ class SPBase:
                 b.S > 1 and (A_np == A_np[0]).all()
                 and (P_np == P_np[0]).all())
         if self.shared_structure:
-            A_dev = ship_stacked(A_np if A_np.ndim == 2 else A_np[0], t, dev)
+            # df32: A lives on the device only as the two-term f32 split
+            split = str(self.options.get("subproblem_precision",
+                                         "")) == "df32"
+            if split and t != torch.float64:
+                raise ValueError("subproblem_precision='df32' needs "
+                                 f"dtype=float64; got {t}")
+            A_dev = ship_shared_matrix(A_np if A_np.ndim == 2 else A_np[0],
+                                       t, dev, split=split)
             P_dev = ship_stacked(P_np[0], t, dev)
         else:
             A_dev = ship_stacked(A_np, t, dev)

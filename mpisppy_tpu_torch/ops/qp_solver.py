@@ -1,5 +1,5 @@
 """Batched dense ADMM QP/LP solver (OSQP-style) in PyTorch — the port of
-mpisppy_tpu/ops/qp_solver.py, native precision only.
+mpisppy_tpu/ops/qp_solver.py.
 
 Form:   min ½ xᵀ diag(P) x + qᵀx   s.t.  l ≤ A x ≤ u,  lb ≤ x ≤ ub.
 
@@ -16,14 +16,18 @@ each residual check reads the convergence flag back (one scalar per
 Solve operator: in f64 the factor carried in ``QPState.L`` is the
 EXPLICIT inverse ``F = M⁻¹`` of the KKT matrix (one product per
 x-update, and the operand of the hand-written ADMM block in
-``ops/kernels``); in f32 it is the Cholesky factor. Cholesky and the
-triangular solves are ``torch.linalg``; the (n, n) product
-``Aᵀ diag(ρ) A`` is ``torch.matmul``.
+``ops/kernels``); in f32 it is the Cholesky factor, or an ``LInv``
+pair (L⁻¹ with L). Cholesky and the triangular solves are
+``torch.linalg``; the (n, n) product ``Aᵀ diag(ρ) A`` is
+``torch.matmul``.
 
-Left for later slices: the df32 ``SplitMatrix``/``PackedMatrix``/
-``ScaledView`` representations, the ``LInv``-driven df32 x-update, and
-``qp_solve_mixed`` (see ROADMAP.md). ``LInv`` exists here only as the
-container the ADMM block's L⁻¹-pair variant accepts.
+Precisions: ``native`` iterates in the engine dtype; ``qp_solve_mixed``
+runs an f32 bulk phase, then an accurate tail. A shared A may be a
+``SplitMatrix`` (the df32 representation: hi + lo f32 pair, optionally
+with a structure-packed matvec form, ops/packed.py), and the tail then
+solves with the f32 factor under split-f32 iterative refinement
+(``_m_solve_ir``). Every f32 product here must be a true f32 product:
+``utils/runtime.pin_precision`` turns TF32 off.
 """
 
 from __future__ import annotations
@@ -92,15 +96,169 @@ class LInv(NamedTuple):
         return self.inv.ndim
 
 
+class SplitMatrix(NamedTuple):
+    """Double-float ("df32") matrix: hi + lo ≈ the f64 matrix, both f32.
+
+    The classic two-term split gets about twice the f32 mantissa from
+    THREE ordinary f32 products:
+
+        A @ x ≈ hi @ x_hi + lo @ x_hi + hi @ x_lo      (drop lo·lo)
+
+    accumulated in f64 (vectors only). Input quantization drops from
+    ~6e-8 to ~4e-15 relative; what remains is each product's f32
+    accumulation noise (~1e-7 relative), the ADMM residual floor of
+    the df32 tail. A TF32 product would land inside that floor and
+    ruin the refinement, hence the precision pin.
+
+    ``struct``/``pk_hi``/``pk_lo`` (optional): the structure-packed
+    matvec form (ops/packed.py). ``struct`` is the host skeleton
+    attached at ship time; setup gathers the SCALED hi/lo into
+    ``pk_hi``/``pk_lo``, after which every _Ax/_ATy pass reads the
+    packed operands. The dense pair stays for the factorization's
+    (n, n) product."""
+    hi: torch.Tensor
+    lo: torch.Tensor
+    struct: object = None      # packed.PackStructure | None
+    pk_hi: object = None       # packed.Packed | None
+    pk_lo: object = None       # packed.Packed | None
+
+    @property
+    def ndim(self):
+        return self.hi.ndim
+
+    @property
+    def shape(self):
+        return self.hi.shape
+
+    @property
+    def dtype(self):
+        # the VALUE dtype the pair represents (consumers dispatch on it)
+        return torch.float64
+
+    @property
+    def device(self):
+        return self.hi.device
+
+
+class PackedMatrix(NamedTuple):
+    """Single-precision matrix with a packed matvec form riding along:
+    the f32 bulk phase's view of a packed SplitMatrix (dense ``hi`` for
+    in-loop refactorization, packed for every matvec)."""
+    dense: torch.Tensor
+    pk: object                 # packed.Packed
+
+    @property
+    def ndim(self):
+        return self.dense.ndim
+
+    @property
+    def shape(self):
+        return self.dense.shape
+
+    @property
+    def dtype(self):
+        return self.dense.dtype
+
+    @property
+    def device(self):
+        return self.dense.device
+
+
+def split_f32(a) -> SplitMatrix:
+    """Two-term split of an f64 tensor (hi = f32 round, lo = residual)."""
+    hi = a.to(torch.float32)
+    lo = (a - hi.to(torch.float64)).to(torch.float32)
+    return SplitMatrix(hi, lo)
+
+
+def split_f32_np(a):
+    """Host-numpy twin of split_f32 (the one split convention: shipping
+    and tests must not re-derive it). Returns (hi, lo)."""
+    import numpy as np
+    a = np.asarray(a, np.float64)
+    hi = a.astype(np.float32)
+    lo = (a - hi.astype(np.float64)).astype(np.float32)
+    return hi, lo
+
+
+def merged64(A):
+    """The f64 value of a SplitMatrix (or a plain tensor cast to f64).
+    Materializes (m, n) in f64: tests and small sizes only."""
+    if isinstance(A, SplitMatrix):
+        return A.hi.to(torch.float64) + A.lo.to(torch.float64)
+    return A.to(torch.float64)
+
+
+class ScaledView(NamedTuple):
+    """QPData.A as a VIEW over the factors' scaled matrix:
+    A = diag(1/E) · A_s · diag(1/D). At df32 scale the raw split A and
+    the scaled split A_s would both be gigabytes; once the base factors
+    exist, the engine swaps its QPData.A for this view and the raw pair
+    frees. _Ax/_ATy (residual checks, dual objectives) dispatch on it."""
+    A_s: object             # SplitMatrix or dense (m, n)
+    D: torch.Tensor         # (n,)
+    E: torch.Tensor         # (m,)
+
+    @property
+    def ndim(self):
+        return 2
+
+    @property
+    def shape(self):
+        return self.A_s.shape
+
+    @property
+    def dtype(self):
+        return torch.float64
+
+    @property
+    def device(self):
+        return self.D.device
+
+
+def _split_vec(v):
+    """(hi, lo) f32 split of an f64 vector batch."""
+    vh = v.to(torch.float32)
+    return vh, (v - vh.to(torch.float64)).to(torch.float32)
+
+
 def _Ax(A, x):
-    """A x with A (m, n) shared or (S, m, n) batched; x (S, n) -> (S, m)."""
+    """A x with A (m, n) shared, (S, m, n) batched, SplitMatrix (three
+    f32 products accumulated in f64), PackedMatrix or ScaledView;
+    x (S, n) -> (S, m). Packed forms route through ops/packed.py."""
+    if isinstance(A, ScaledView):
+        return _Ax(A.A_s, x / A.D) / A.E
+    if isinstance(A, PackedMatrix):
+        from .packed import pk_Ax
+        return pk_Ax(A.pk, x, A.dense.shape[0])
+    if isinstance(A, SplitMatrix):
+        xh, xl = _split_vec(x)
+        if A.pk_hi is not None:
+            from .packed import pk_Ax_split
+            return pk_Ax_split(A.pk_hi, A.pk_lo, xh, xl, A.hi.shape[0])
+        f64 = torch.float64
+        return ((xh @ A.hi.T).to(f64) + (xh @ A.lo.T).to(f64)
+                + (xl @ A.hi.T).to(f64))
     if A.ndim == 2:
         return x @ A.T
     return torch.bmm(A, x.unsqueeze(-1)).squeeze(-1)
 
 
 def _ATy(A, y):
-    """Aᵀ y with A (m, n) shared or (S, m, n) batched; y (S, m) -> (S, n)."""
+    """Aᵀ y with A in any of _Ax's representations; y (S, m) -> (S, n)."""
+    if isinstance(A, ScaledView):
+        return _ATy(A.A_s, y / A.E) / A.D
+    if isinstance(A, PackedMatrix):
+        from .packed import pk_ATy
+        return pk_ATy(A.pk, y, A.dense.shape[1])
+    if isinstance(A, SplitMatrix):
+        yh, yl = _split_vec(y)
+        if A.pk_hi is not None:
+            from .packed import pk_ATy_split
+            return pk_ATy_split(A.pk_hi, A.pk_lo, yh, yl, A.hi.shape[1])
+        f64 = torch.float64
+        return ((yh @ A.hi).to(f64) + (yh @ A.lo).to(f64)
+                + (yl @ A.hi).to(f64))
     if A.ndim == 2:
         return y @ A
     return torch.bmm(A.transpose(1, 2), y.unsqueeze(-1)).squeeze(-1)
@@ -154,7 +312,13 @@ def _factorize(factors: QPFactors, rho_scale):
     mode returns one (n, n) operator, batched mode (S, n, n). The
     inverse is built from the Cholesky factor by two triangular solves
     against the identity."""
+    if isinstance(factors.A_s, SplitMatrix):
+        return _factorize_split(factors, rho_scale)
     A_s, P_s = factors.A_s, factors.P_s
+    if isinstance(A_s, PackedMatrix):
+        # in-loop refactorization in the f32 bulk: the packed form serves
+        # the matvecs, the (n, n) product reads the dense hi
+        A_s = A_s.dense
     g = factors.Eb * factors.D
     n = A_s.shape[-1]
     invert = A_s.dtype == torch.float64
@@ -180,6 +344,23 @@ def _factorize(factors: QPFactors, rho_scale):
     # the kernel layer reads F row-major: return it contiguous
     return torch.linalg.solve_triangular(L.transpose(-2, -1), w,
                                          upper=True).contiguous()
+
+
+def _factorize_split(factors: QPFactors, rho_scale):
+    """df32 factorization: a plain f32 Cholesky factor of M from ONE f32
+    product of the hi part, no f64 matmul. The factor is a
+    PRECONDITIONER: the df32 x-update (_m_solve_ir) wraps each solve in
+    mixed-precision iterative refinement whose residuals come from
+    split-f32 matvecs, which corrects both M's f32 quantization and the
+    κ(M)·eps32 solve error."""
+    A_s, P_s = factors.A_s, factors.P_s
+    f32 = torch.float32
+    g32 = (factors.Eb * factors.D).to(f32)
+    rA32 = (factors.rho_A * rho_scale).to(f32)
+    rB32 = (factors.rho_b * rho_scale).to(f32)
+    M32 = A_s.hi.T @ (rA32.unsqueeze(-1) * A_s.hi)
+    M32.diagonal().add_(P_s.to(f32) + factors.sigma + g32 * g32 * rB32)
+    return torch.linalg.cholesky(_symmetrized(M32))
 
 
 def _device_f64_linalg_trusted():
@@ -244,19 +425,13 @@ def _rho_patterns(l, u, lb, ub, rho_base, eq_boost, shared, dt):
     return torch.where(is_eq, hi, lo), torch.where(is_eq_b, hi, lo)
 
 
-def qp_setup(data: QPData, q_ref=None, rho_base=0.1, sigma=1e-6,
-             eq_boost=1e3) -> QPFactors:
-    """Equilibrate and scale. Re-solves with a new q reuse everything;
-    the equality-row rho boost depends only on which rows/columns are
-    pinned (l == u / lb == ub), so one setup serves every PH iteration
-    of a mode."""
-    P_diag, A, l, u, lb, ub = data
-    D, E, Eb = _ruiz_equilibrate(P_diag, A)
-    A_s = E.unsqueeze(-1) * A * D.unsqueeze(-2)
-    dt = A.dtype
-    shared = A.ndim == 2
+def _setup_vectors(P_diag, l, u, lb, ub, D, q_ref, rho_base, eq_boost,
+                   shared, dt):
+    """Everything in qp_setup after the scaled matrix exists: the cost
+    normalization (OSQP sec 5.1: objective gradient O(1)) and the
+    equality-boosted rho patterns. Returns (P_s, cost_scale, rho_A,
+    rho_b)."""
     P_s = D * P_diag * D
-    # cost normalization (OSQP sec 5.1): objective gradient O(1)
     if q_ref is None:
         q_ref = torch.zeros(lb.shape, dtype=dt, device=lb.device)
     qs = D * q_ref
@@ -272,6 +447,65 @@ def qp_setup(data: QPData, q_ref=None, rho_base=0.1, sigma=1e-6,
         P_s = P_s * cost_scale.unsqueeze(-1)
     rho_A, rho_b = _rho_patterns(l, u, lb, ub, rho_base, eq_boost,
                                  shared, dt)
+    return P_s, cost_scale, rho_A, rho_b
+
+
+def _scale_split_blocks(A: SplitMatrix, D, E, nblocks=8) -> SplitMatrix:
+    """A_s = split(E·A·D) in ROW BLOCKS, so the f64 value of the scaled
+    matrix only exists one block at a time."""
+    m = A.hi.shape[0]
+    his, los = [], []
+    bounds = [(m * i) // nblocks for i in range(nblocks + 1)]
+    f64 = torch.float64
+    for i in range(nblocks):
+        sl = slice(bounds[i], bounds[i + 1])
+        blk = (A.hi[sl].to(f64) + A.lo[sl].to(f64)) \
+            * E[sl].unsqueeze(-1) * D.unsqueeze(0)
+        hi = blk.to(torch.float32)
+        los.append((blk - hi.to(f64)).to(torch.float32))
+        his.append(hi)
+        del blk
+    return SplitMatrix(torch.cat(his), torch.cat(los))
+
+
+def _qp_setup_split(data: QPData, q_ref, rho_base, sigma, eq_boost):
+    """df32 setup: Ruiz on the f32 hi part (the scalings are heuristic:
+    a 1e-7-relative view of |A| changes nothing), the scaled split built
+    blockwise, its packed form gathered when the shipped matrix carries
+    a structure, and the vector tail shared with the dense path."""
+    A = data.A
+    f64 = torch.float64
+    D32, E32, Eb32 = _ruiz_equilibrate(data.P_diag.to(torch.float32), A.hi)
+    D, E, Eb = D32.to(f64), E32.to(f64), Eb32.to(f64)
+    A_s = _scale_split_blocks(A, D, E)
+    if A.struct is not None:
+        # the same index skeleton serves hi and lo (scaling preserves
+        # structure); from here every hot-loop A-pass is packed
+        from .packed import pack
+        A_s = A_s._replace(struct=A.struct, pk_hi=pack(A.struct, A_s.hi),
+                           pk_lo=pack(A.struct, A_s.lo))
+    P_s, cost_scale, rho_A, rho_b = _setup_vectors(
+        data.P_diag, data.l, data.u, data.lb, data.ub, D, q_ref, rho_base,
+        eq_boost, True, f64)
+    return QPFactors(sigma=float(sigma), D=D, E=E, Eb=Eb,
+                     cost_scale=cost_scale, A_s=A_s, P_s=P_s,
+                     rho_A=rho_A, rho_b=rho_b)
+
+
+def qp_setup(data: QPData, q_ref=None, rho_base=0.1, sigma=1e-6,
+             eq_boost=1e3) -> QPFactors:
+    """Equilibrate and scale. Re-solves with a new q reuse everything;
+    the equality-row rho boost depends only on which rows/columns are
+    pinned (l == u / lb == ub), so one setup serves every PH iteration
+    of a mode. A SplitMatrix A takes the df32 setup."""
+    if isinstance(data.A, SplitMatrix):
+        return _qp_setup_split(data, q_ref, rho_base, sigma, eq_boost)
+    P_diag, A, l, u, lb, ub = data
+    D, E, Eb = _ruiz_equilibrate(P_diag, A)
+    A_s = E.unsqueeze(-1) * A * D.unsqueeze(-2)
+    P_s, cost_scale, rho_A, rho_b = _setup_vectors(
+        P_diag, l, u, lb, ub, D, q_ref, rho_base, eq_boost, A.ndim == 2,
+        A.dtype)
     return QPFactors(sigma=float(sigma), D=D, E=E, Eb=Eb,
                      cost_scale=cost_scale, A_s=A_s, P_s=P_s,
                      rho_A=rho_A, rho_b=rho_b)
@@ -281,7 +515,8 @@ def qp_setup_like(base: QPFactors, data: QPData, rho_base=0.1,
                   eq_boost=1e3) -> QPFactors:
     """Factors for a related mode (prox on/off, pinned boxes) reusing
     ``base``'s equilibration and scaled matrix: only the scaled
-    quadratic diagonal and the rho patterns are recomputed."""
+    quadratic diagonal and the rho patterns are recomputed. In df32
+    every mode shares the one scaled split this way."""
     shared = base.A_s.ndim == 2
     csx = base.cost_scale if shared else base.cost_scale.unsqueeze(-1)
     P_s = base.D * data.P_diag * base.D * csx
@@ -365,14 +600,22 @@ def _unscaled_residuals(A_s, P_s, g, D, E, Eb, csx, q_s, x, yA, yB, zA,
     return pri, dua, pri_sc, dua_sc
 
 
+def make_l_inv(L) -> LInv:
+    """L -> (L⁻¹, L): one n-RHS triangular solve. The explicit L⁻¹ is
+    licensed only under iterative refinement (the df32 tail); solves
+    with no refinement around them use ``tri``."""
+    eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
+    return LInv(torch.linalg.solve_triangular(L, eye,
+                                              upper=False).contiguous(), L)
+
+
+
 def _refactor_like(factors, rho_scale, like):
-    """In-loop refactorization that keeps the carried container."""
+    """In-loop refactorization that keeps the carried container: a
+    state running the L⁻¹ x-update gets a fresh L⁻¹."""
     L_new = _factorize(factors, rho_scale)
     if isinstance(like, LInv):
-        eye = torch.eye(L_new.shape[-1], dtype=L_new.dtype,
-                        device=L_new.device)
-        return LInv(torch.linalg.solve_triangular(
-            L_new, eye, upper=False).contiguous(), L_new)
+        return make_l_inv(L_new)
     return L_new
 
 
@@ -380,7 +623,7 @@ def _solve_impl(factors: QPFactors, data: QPData, q, state: QPState,
                 max_iter=4000, check_every=25, eps_abs=1e-6, eps_rel=1e-6,
                 alpha=1.6, adaptive_rho=True, polish=True, polish_iters=12,
                 polish_chunk=0, eps_abs_dua=None, eps_rel_dua=None,
-                stall_rel=0.0):
+                stall_rel=0.0, ir_sweeps=1):
     """The solve: relaxed ADMM in ``check_every``-step chunks with
     residual checks, OSQP rho adaptation every 4th check (refactorize
     when the ideal rho moved more than 5x; one shared scalar in shared
@@ -389,10 +632,19 @@ def _solve_impl(factors: QPFactors, data: QPData, q, state: QPState,
     ``polish_chunk``) that picks the best-KKT point and the duals with
     the best certified dual objective.
 
+    With a SplitMatrix A_s (df32) the x-update is the f32 factor under
+    ``ir_sweeps`` sweeps of split-f32 iterative refinement
+    (_m_solve_ir), and the polish is off: its per-scenario (n, n)
+    penalty factors are what the representation exists to avoid, and
+    the ADMM duals still give a valid bound through qp_dual_objective.
+
     Returns (state, x (S,n), yA (S,m), yB (S,n)): state iterates scaled,
     the returned solution and duals UNscaled."""
     sigma, D, E, Eb, cs, A_s, P_s, rho_A, rho_b = factors
     shared = A_s.ndim == 2
+    split_mode = isinstance(A_s, SplitMatrix)
+    if split_mode:
+        polish = False
     g, l_s, u_s, lb_s, ub_s, csx, q_s = _scaled_problem(factors, data, q)
     eps_abs_dua = eps_abs if eps_abs_dua is None else eps_abs_dua
     eps_rel_dua = eps_rel if eps_rel_dua is None else eps_rel_dua
@@ -401,12 +653,31 @@ def _solve_impl(factors: QPFactors, data: QPData, q, state: QPState,
         rs = rho_scale if shared else rho_scale.unsqueeze(-1)
         return rho_A * rs, rho_b * rs
 
+    def _m_solve_ir(L, rhs, rA, rB):
+        """df32 x-update: f32 solves + ``ir_sweeps`` sweeps of
+        mixed-precision iterative refinement. The residual rhs − Mx goes
+        through the SPLIT matvecs (f64 accumulation of f32 products), so
+        each sweep contracts the error by ~κ(M)·eps32; M is applied in
+        factored form (P, σ, A_sᵀρA_s, bound rows), never stored. One
+        sweep lands at ~(κ·eps32)², below the split's own ~1e-7 floor."""
+        def m_apply(v):
+            return P_s * v + sigma * v + _ATy(A_s, rA * _Ax(A_s, v)) \
+                + g * g * rB * v
+
+        x = _chol_solve(L, rhs)
+        for _ in range(ir_sweeps):
+            x = x + _chol_solve(L, rhs - m_apply(x))
+        return x
+
     def admm_chunk(x, yA, yB, zA, zB, L, rA, rB):
-        Lop = L.tri if isinstance(L, LInv) else L
+        # un-refined solves must not use an explicit L⁻¹ (see LInv): an
+        # LInv carry hands its raw factor to them
+        Lop = L.tri if isinstance(L, LInv) and not split_mode else L
         for _ in range(check_every):
             rhs = sigma * x - q_s + _ATy(A_s, rA * zA - yA) \
                 + g * (rB * zB - yB)
-            x_t = _chol_solve(Lop, rhs)
+            x_t = _m_solve_ir(Lop, rhs, rA, rB) if split_mode \
+                else _chol_solve(Lop, rhs)
             x_new = alpha * x_t + (1 - alpha) * x
             zA_t = _Ax(A_s, x_t)
             zA_mix = alpha * zA_t + (1 - alpha) * zA
@@ -710,6 +981,114 @@ def qp_solve_segmented(factors: QPFactors, data: QPData, q, state: QPState,
     state, x, yA, yB = qp_solve(factors, data, q, state, max_iter=0,
                                 polish=final_polish, **kw)
     return state._replace(iters=total), x, yA, yB
+
+
+def _cast_floats(tree, dt):
+    """Cast the floating tensor fields of a QPFactors/QPData/QPState
+    (an LInv field included) to ``dt``; everything else rides along.
+    Split and packed containers are left as they are: they are f32
+    storage already."""
+    def cast(v):
+        if isinstance(v, LInv):
+            return LInv(cast(v.inv), cast(v.tri))
+        if isinstance(v, torch.Tensor) and v.is_floating_point() \
+                and v.dtype != dt:
+            return v.to(dt)
+        return v
+
+    return tree._replace(**{k: cast(v) for k, v in zip(tree._fields, tree)})
+
+
+def _lo_eps(eps_abs, eps_rel, eps_rel_dua):
+    """The f32 bulk's termination floors: the bulk is a WARM START for
+    the tail, so it stops at its noise floor (1e-4 absolute, 1e-3
+    relative; a coarse 1e-2 on the dual, which plateaus well above the
+    primal in f32)."""
+    return (max(float(eps_abs), 1e-4), max(float(eps_rel), 1e-3),
+            max(float(eps_rel if eps_rel_dua is None else eps_rel_dua),
+                1e-2))
+
+
+def _solve_lo_impl(f_lo, d_lo, q_lo, st_lo, max_iter, check_every, eps_abs,
+                   eps_rel, alpha, adaptive_rho, polish_iters, eps_rel_dua,
+                   stall_rel):
+    """One polish-free f32 segment of the mixed drivers."""
+    st_lo, _, _, _ = _solve_impl(f_lo, d_lo, q_lo, st_lo, max_iter,
+                                 check_every, eps_abs, eps_rel, alpha,
+                                 adaptive_rho, False, polish_iters, 0,
+                                 eps_abs, eps_rel_dua, stall_rel)
+    return st_lo
+
+
+def bulk_operand(A_s):
+    """The f32 bulk phase's A: the plain hi part of a SplitMatrix (one
+    product per matvec, not three), with its packed view when present;
+    any other A as it is (the bulk casts it)."""
+    if isinstance(A_s, SplitMatrix):
+        if A_s.pk_hi is not None:
+            return PackedMatrix(A_s.hi, A_s.pk_hi)
+        return A_s.hi
+    return A_s
+
+
+def qp_solve_mixed(factors: QPFactors, data: QPData, q, state: QPState,
+                   max_iter=4000, tail_iter=1000, check_every=25,
+                   eps_abs=1e-6, eps_rel=1e-6, alpha=1.6, adaptive_rho=True,
+                   polish=True, polish_iters=12, polish_chunk=0,
+                   eps_abs_dua=None, eps_rel_dua=None, stall_rel=0.0,
+                   segment=500, segment_lo=None, ir_sweeps=1):
+    """Precision-escalated solve, host-segmented: an f32 bulk phase
+    (segments of ``segment_lo``, default ``segment``, iterations until
+    its noise-floor test passes or ``max_iter``), then the accurate tail
+    (qp_solve_segmented with ``tail_iter``) and the polish.
+
+    Everything arrives in f64; the f32 copies are cast here. In df32
+    (SplitMatrix factors) the bulk iterates on the hi part (packed when
+    available) with the state's own f32 factor, and the tail reuses the
+    factor the bulk ended on: the factor is a pure function of the
+    adapted rho. Otherwise the bulk factors its f32 copy and the tail
+    refactors in f64 at the handed-over rho. ``max_iter`` bounds the
+    bulk only; total work can reach max_iter + tail_iter plus one
+    segment of overshoot each. Returns (state, x, yA, yB) with the
+    state in f64."""
+    lo = torch.float32
+    split = isinstance(factors.A_s, SplitMatrix)
+    f_lo = _cast_floats(factors._replace(A_s=bulk_operand(factors.A_s)), lo)
+    # the bulk never polishes, so its data's A is never read
+    d_lo = _cast_floats(data._replace(A=f_lo.A_s), lo)
+    st_lo = _cast_floats(state, lo)
+    if not split:
+        st_lo = st_lo._replace(L=_factorize(f_lo, st_lo.rho_scale))
+    eps_lo, eps_rel_lo, eps_rel_lo_dua = _lo_eps(eps_abs, eps_rel,
+                                                 eps_rel_dua)
+    if segment_lo is not None and int(segment_lo) <= 0:
+        raise ValueError("segment_lo must be positive (None = use "
+                         "`segment` for both phases)")
+    seg_lo = segment if segment_lo is None else int(segment_lo)
+    q_lo = q.to(lo)
+    lo_total = 0
+    while lo_total < max_iter:
+        obs.counter_add("qp.solve_segments")
+        st_lo = _solve_lo_impl(f_lo, d_lo, q_lo, st_lo, seg_lo, check_every,
+                               eps_lo, eps_rel_lo, alpha, adaptive_rho,
+                               polish_iters, eps_rel_lo_dua, stall_rel)
+        ran = st_lo.iters
+        lo_total += ran
+        if ran < seg_lo:
+            break
+    dt_hi = state.x.dtype
+    rho_hi = st_lo.rho_scale.to(dt_hi)
+    L_hi = st_lo.L if split else _factorize(factors, rho_hi)
+    st_hi = _cast_floats(st_lo._replace(L=None), dt_hi)._replace(
+        L=L_hi, rho_scale=rho_hi)
+    st_hi, x, yA, yB = qp_solve_segmented(
+        factors, data, q, st_hi, max_iter=tail_iter, segment=segment,
+        check_every=check_every, eps_abs=eps_abs, eps_rel=eps_rel,
+        alpha=alpha, adaptive_rho=adaptive_rho, polish=polish,
+        polish_iters=polish_iters, polish_chunk=polish_chunk,
+        eps_abs_dua=eps_abs_dua, eps_rel_dua=eps_rel_dua,
+        stall_rel=stall_rel, ir_sweeps=ir_sweeps)
+    return st_hi._replace(iters=lo_total + st_hi.iters), x, yA, yB
 
 
 def qp_state_duals(factors: QPFactors, state: QPState):

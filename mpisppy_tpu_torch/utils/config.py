@@ -7,6 +7,11 @@ KERNEL_MODES = ("auto", "fused", "segmented")
 # dicts run unchanged against the port
 KERNEL_BACKENDS = ("reference", "cuda", "pallas")
 KERNEL_BACKEND_ALIASES = {"pallas": "cuda"}
+# the df32 tail's L⁻¹ trade (ops/kernels/reference.l_inv_profitable)
+# and the bulk phase's packed-block storage: the JAX package's values,
+# of which the port runs f32 only ("bf16" raises, ROADMAP.md)
+KERNEL_L_INV_MODES = ("auto", "on", "off")
+KERNEL_BLOCK_DTYPES = ("auto", "bf16", "f32")
 FUSED_IR_SWEEPS = range(1, 5)
 
 

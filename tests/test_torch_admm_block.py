@@ -164,8 +164,11 @@ def test_out_of_scope_operator_demotes_with_event():
 
 
 def test_prepare_scope_and_unported_precisions():
-    """Batched A is outside the block's scope (reference backend); the
-    df32/mixed precisions belong to a later slice and raise."""
+    """Batched A is outside the block's scope (reference backend). The
+    df32/mixed precisions, ported since, never take the block either: on
+    a shared 2-D A, plain or split, their plan runs the reference
+    backend's fused mixed solve with the bulk operand staged (as in the
+    JAX package, whose Pallas block needs native precision)."""
     rng = np.random.default_rng(1)
     S, m, n = 2, 3, 4
     data = T.QPData(torch.ones(S, n), torch.as_tensor(rng.normal(
@@ -175,9 +178,15 @@ def test_prepare_scope_and_unported_precisions():
     assert kernels.prepare(fac, mode="fused", backend="cuda").backend \
         == "reference"
     assert kernels.prepare(fac, mode="segmented").mode == "segmented"
-    for prec in ("mixed", "df32"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            kernels.prepare(fac, mode="fused", precision=prec)
+    A2 = torch.as_tensor(rng.normal(size=(m, n)))
+    for A in (A2, T.split_f32(A2)):
+        f2 = T.qp_setup(data._replace(P_diag=torch.ones(n), A=A))
+        for prec in ("mixed", "df32"):
+            plan = kernels.prepare(f2, mode="fused", backend="cuda",
+                                   precision=prec)
+            assert plan.backend == "reference" and plan.mode == "fused"
+            bulk = f2.A_s.hi if isinstance(A, T.SplitMatrix) else f2.A_s
+            assert plan.A_lo is bulk
 
 
 def test_block_refuses_devices_without_a_kernel():

@@ -29,7 +29,10 @@ def test_every_module_imports_with_jax_poisoned():
     """The probe of tests/test_lint.py:414 aimed at the port: any static
     or lazy jax import raises immediately."""
     mods = _modules()
-    assert "mpisppy_tpu_torch.ops.kernels.admm_block" in mods
+    for m in ("mpisppy_tpu_torch.ops.kernels.admm_block",
+              "mpisppy_tpu_torch.ops.kernels.reference",
+              "mpisppy_tpu_torch.ops.packed"):
+        assert m in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['mpisppy_tpu'] = None\n"

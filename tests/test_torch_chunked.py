@@ -509,11 +509,15 @@ def test_solving_a_chunk_leaves_sibling_states_unchanged(mode):
     ("dispatch", "dispatch-masked solve")])
 def test_unported_branches_raise(case, message):
     """Each branch that belongs to a later slice raises its own
-    NotImplementedError naming ROADMAP.md; none runs another path."""
+    NotImplementedError naming ROADMAP.md; none runs another path. The
+    mixed and df32 precisions run since their slice landed; asked to
+    combine with a later slice's branch (shrinking, here) they raise,
+    naming the precision."""
     opts = {"subproblem_chunk": 3}
     kw, solve_kw = {}, {}
     if case in ("mixed", "df32"):
         opts["subproblem_precision"] = case
+        opts["shrink_fix"] = True
     elif case.startswith("shrink"):
         opts[case] = True
     elif case == "mesh":

@@ -203,3 +203,58 @@ def test_chunked_fused_ph_equals_unchunked(cuda):
     for got, ref in ((a.xbar, b.xbar), (a.W, b.W)):
         scale = max(1.0, float(ref.abs().max()))
         assert float((got - ref).abs().max()) <= 1e-12 * scale
+
+
+def _uc_split_packed(device):
+    """The packed split form of a UC 6 x 12 matrix (the structure the
+    packed tests use) on ``device``."""
+    from mpisppy_tpu_torch.ir.standard_form import lower
+    from mpisppy_tpu_torch.models import uc
+    from mpisppy_tpu_torch.ops import packed
+    A = np.asarray(lower(uc.scenario_creator(
+        "scen0", num_gens=6, num_hours=12, relax_integrality=True,
+        min_up_down=True, ramping=True)).A, np.float64)
+    st = packed.analyze_structure(*np.nonzero(A), *A.shape)
+    sp = T.split_f32(torch.as_tensor(A, device=device))
+    return A, sp, packed.pack(st, sp.hi), packed.pack(st, sp.lo)
+
+
+@pytest.mark.cuda
+def test_packed_split_apply_is_bit_reproducible_on_the_card(cuda):
+    """The gather-only packed apply has no atomics: two calls on the card
+    give the same bits, and the result matches the dense split product
+    to the split's 2e-6 floor."""
+    from mpisppy_tpu_torch.ops import packed
+    A, sp, pk_hi, pk_lo = _uc_split_packed(cuda)
+    m, n = A.shape
+    rng = np.random.default_rng(5)
+    for S, v_len, fn, size in ((16, n, packed.pk_Ax_split, m),
+                               (16, m, packed.pk_ATy_split, n)):
+        v = torch.as_tensor(rng.normal(size=(S, v_len)), device=cuda)
+        vh = v.float()
+        vl = (v - vh.double()).float()
+        a = fn(pk_hi, pk_lo, vh, vl, size)
+        b = fn(pk_hi, pk_lo, vh, vl, size)
+        torch.cuda.synchronize()
+        assert a.is_cuda and torch.equal(a, b)
+        dense = (T._Ax if fn is packed.pk_Ax_split else T._ATy)(sp, v)
+        assert float((a - dense).abs().max()) \
+            <= 2e-6 * float(dense.abs().max())
+
+
+@pytest.mark.cuda
+def test_tf32_pin_holds_on_the_card(cuda):
+    """The engine's device resolution pins full-precision f32 products:
+    a TF32 product would land inside the split's 1e-7 floor. An f32
+    matmul on the card then agrees with its f64 product to f32
+    accumulation level, far below TF32's 2⁻¹¹."""
+    from mpisppy_tpu_torch.utils.runtime import resolve_device
+    resolve_device("cuda")
+    assert torch.get_float32_matmul_precision() == "highest"
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    g = torch.Generator(device="cpu").manual_seed(0)
+    a = torch.randn(256, 1024, generator=g, dtype=torch.float64)
+    b = torch.randn(1024, 64, generator=g, dtype=torch.float64)
+    got = (a.float().to(cuda) @ b.float().to(cuda)).double().cpu()
+    ref = a.float().double() @ b.float().double()
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
