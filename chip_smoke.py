@@ -51,8 +51,20 @@
    phase 6's native block at the same rows;
 9. runs one fused and one segmented mixed-precision PH iteration on a
    small chunked UC and checks that x̄ and W agree (``mixed_check``);
-then prints one {"kernels": [...]} line whose launches count phases 3
-and 5 and whose max_abs_err is the largest of phases 4 and 5.
+10. spins the hub-and-spoke wheel that ``python -m mpisppy_tpu_torch``
+   runs (``wheel_path``: a RunConfig through utils/vanilla.wheel_dicts
+   and utils/sputils.spin_the_wheel) on the slice's S = 10 batch: a PH
+   hub, the Lagrangian spoke in device-dual mode and the shuffled x̂
+   spoke with host-oracle candidates and exact evaluation, the JAX
+   bench's device-certified gap wheel with the cuts listed at
+   WHEEL_ITERS; checks that the hub's and the Lagrangian spoke's
+   engines each launched the block (counted per engine) with no
+   demotion, iter-0 feasibility, finite bounds with outer <= inner and
+   outer >= the trivial bound, and holds the block against its plain
+   version at full width from the Lagrangian engine's prox-off W-on
+   state;
+then prints one {"kernels": [...]} line whose launches count phases 3,
+5 and 10 and whose max_abs_err is the largest of phases 4, 5 and 10.
 The last line is {"ok": true, "device": {...}}; any failed check raises.
 """
 
@@ -94,6 +106,27 @@ CHUNK_SCENARIOS = 40
 CHUNK = 16
 # rows per call timed by block_scaling (128: the JAX bench's chunk)
 SCALING_ROWS = (16, 48, 128)
+
+# the wheel (phase 10): the JAX bench's device-certified gap wheel
+# (bench.py bench_uc10_gap_device_bound through its _wheel) on the
+# slice's batch, with these cuts: the base options are PH_OPTS (native
+# f64 on the cuda block, not the bench's df32 recipe, which never
+# enters the block), no padding to 128 rows (a TPU program-shape
+# device), and a wheel deadline of WHEEL_DEADLINE seconds. The bench's
+# 25 hub iterations fit (about 130 s on an H100 80GB HBM3 at 700 W),
+# and the x̂ spoke's first oracle round (three host MILPs and the exact
+# evaluation of one candidate) lands within the hub's iter 0, so the
+# deadline is a guard that the hub's iteration limit normally beats
+WHEEL_ITERS = 25
+WHEEL_DEADLINE = 300.0
+WHEEL_REL_GAP = 0.004
+WHEEL_GAP_MARKS = (0.01, 0.005)
+# the bench's oracle candidate recipe (bench.py _XHAT_ORACLE)
+XHAT_ORACLE = {"xhat_oracle_candidates": True,
+               "xhat_dive_candidates": False,
+               "xhat_device_prescreen": False,
+               "xhat_union_fallback": True, "xhat_scen_limit": 3,
+               "xhat_oracle_time_limit": 120.0, "xhat_oracle_gap": 5e-3}
 
 # kernel vs plain (see compare): the multiple of the plain version's
 # own summation-order spread that the bar allows, and the multiple of
@@ -1223,6 +1256,153 @@ def mixed_check(dev):
                            f"{d_xbar:.3e}, W {d_W:.3e} (bar {MIXED_BAR})")
 
 
+def wheel_config(dev):
+    """Phase 10's RunConfig: the JAX bench's device-certified gap wheel
+    (see WHEEL_ITERS for the cuts), on ``dev``."""
+    from mpisppy_tpu_torch.utils.config import (AlgoConfig, RunConfig,
+                                                SpokeConfig)
+    base = dict(PH_OPTS)
+    algo = AlgoConfig(
+        default_rho=base["defaultPHrho"], max_iterations=WHEEL_ITERS,
+        convthresh=-1.0, subproblem_max_iter=base["subproblem_max_iter"],
+        subproblem_eps=base["subproblem_eps"],
+        subproblem_polish_chunk=base["subproblem_polish_chunk"],
+        subproblem_kernel_mode=base["subproblem_kernel_mode"],
+        subproblem_kernel_backend=base["subproblem_kernel_backend"])
+    lag = dict(base, lagrangian_exact_oracle=False,
+               lagrangian_lp_ef_warmstart=False,
+               lagrangian_lp_time_limit=120.0,
+               lagrangian_device_duals=True)
+    # the bench's x̂ options (its xhat_oracle_time_limit is
+    # XHAT_ORACLE's 120 s)
+    xhat = dict(base, **XHAT_ORACLE, xhat_exact_eval=True,
+                xhat_min_interval=5.0, xhat_pin_vars=["u"],
+                xhat_eval_milp=False)
+    return RunConfig(
+        model="uc", num_scens=SLICE_SCENARIOS,
+        model_kwargs=dict(SLICE_INSTANCE), algo=algo,
+        hub_options=dict(base, PHIterLimit=WHEEL_ITERS, convthresh=-1.0,
+                         iter0_feas_tol=5e-3),
+        spokes=[SpokeConfig(kind="lagrangian", options=lag),
+                SpokeConfig(kind="xhatshuffle", options=xhat)],
+        rel_gap=WHEEL_REL_GAP, wheel_deadline=WHEEL_DEADLINE,
+        device=str(dev))
+
+
+def wheel_path(dev):
+    """Phase 10: the wheel, as ``python -m mpisppy_tpu_torch`` spins it.
+    Returns (block launches of the wheel, the block's largest
+    difference from its plain version at the Lagrangian engine's
+    shapes, the list of failed checks); prints one JSON line."""
+    import math
+    import torch
+    from mpisppy_tpu_torch import obs
+    from mpisppy_tpu_torch.core.ph import _ph_assemble
+    from mpisppy_tpu_torch.ops.kernels import admm_block
+    from mpisppy_tpu_torch.utils.sputils import spin_the_wheel
+    from mpisppy_tpu_torch.utils.vanilla import wheel_dicts
+
+    cfg = wheel_config(dev)
+    t0 = time.perf_counter()
+    hub_d, spoke_ds = wheel_dicts(cfg)
+    t_batch = time.perf_counter() - t0
+    hub_d["hub_kwargs"]["options"]["gap_marks"] = WHEEL_GAP_MARKS
+    it_log = IterLog()
+    hub_d["opt_kwargs"]["extensions"] = it_log
+    on_card = torch.device(dev).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    obs.configure()
+    admm_block.LAUNCHES = 0
+    t0 = it_log.t0 = time.perf_counter()
+    wheel = spin_the_wheel(hub_d, spoke_ds)
+    _sync()
+    t_wheel = time.perf_counter() - t0
+    launches = admm_block.LAUNCHES
+    demotions = obs.events("kernel.cuda_demotion")
+    spoke_bounds = obs.events("spoke.bound")
+    obs.shutdown()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    hub = wheel.hub
+    ph, lag, xhat = hub.opt, wheel.spokes[0].opt, wheel.spokes[1].opt
+    per_engine = {"hub": ph.kernel_launches, "lagrangian": lag.kernel_launches,
+                  "xhatshuffle": xhat.kernel_launches}
+    outer, inner = wheel.best_outer_bound, wheel.best_inner_bound
+    trivial = getattr(ph, "trivial_bound", None)
+    pri0 = float(ph._qp_states[False].pri_rel.max())
+    t_start = hub.clock_anchor["perf_counter"]
+
+    def first(kind, chars=None):
+        """Seconds from the wheel's start to the hub's first ``kind``
+        bound (from the spokes of ``chars`` only, when given)."""
+        for t, k, char, _ in hub.bound_events:
+            if k == kind and (chars is None or char in chars):
+                return t - t_start
+        return None
+
+    _, rel_gap = wheel.gap()
+    failures = []
+    for name in ("hub", "lagrangian"):
+        if per_engine[name] <= 0:
+            failures.append(f"the {name} engine launched no block")
+    if sum(per_engine.values()) != launches:
+        failures.append(f"per-engine launches {per_engine} do not add up "
+                        f"to the block's {launches}")
+    if demotions:
+        failures.append(f"kernel demotion booked: {demotions}")
+    if not pri0 <= 5e-3:
+        failures.append(f"iter-0 max pri_rel {pri0:.3e} above the gate")
+    if not (math.isfinite(outer) and math.isfinite(inner)):
+        failures.append(f"bounds not finite: outer {outer}, inner {inner}")
+    elif not outer <= inner:
+        failures.append(f"outer bound {outer} above inner bound {inner}")
+    if trivial is None or not outer >= trivial:
+        failures.append(f"outer bound {outer} below the trivial bound "
+                        f"{trivial}")
+    # the block at full width on the Lagrangian engine's prox-off W-on
+    # operator: its last solve's state and factors, the cost at its W
+    factors, data = lag._get_factors(False)
+    st = lag._qp_states[False]
+    q, _, _ = _ph_assemble(data, lag.c, lag.W, lag.xbar, lag.rho,
+                           lag.nonant_idx, lag._fixed_mask, lag._fixed_vals,
+                           lag._w_scale, w_on=True, prox_on=False)
+    err, f = compare(factors, data, q, st, 20, "wheel_lagrangian_prox_off")
+    failures += f
+    admm_block.LAUNCHES = launches   # the comparison's are not the path's
+    rows = it_log.rows
+    log(json.dumps({
+        "phase": "wheel_path", "S": ph.batch.S, "n": ph.batch.n,
+        "m": ph.batch.m, "batch_build_s": t_batch, "wheel_s": t_wheel,
+        "hub_iterations": len(rows), "deadline_s": WHEEL_DEADLINE,
+        "watchdog_fired": hub._watchdog_fired,
+        "hub_s_per_iteration": [r["seconds"] for r in rows],
+        "iter0_max_pri_rel": pri0, "trivial_bound": trivial,
+        "best_outer": outer, "best_inner": inner, "rel_gap": rel_gap,
+        "first_outer_s": first("outer"),
+        "first_spoke_outer_s": first("outer", "L"),
+        "first_inner_s": first("inner"),
+        "gap_mark_s": {str(mk): (hub.gap_mark_times[mk] - t_start
+                                 if mk in hub.gap_mark_times else None)
+                       for mk in WHEEL_GAP_MARKS},
+        "bound_events": [[t - t_start, k, c, v]
+                         for t, k, c, v in hub.bound_events],
+        # every bound each spoke computed (the hub books improvements)
+        "spoke_bounds": [[e["t"] - t_start, e["char"], e["value"]]
+                         for _, e in spoke_bounds],
+        "solve_s_per_call": {
+            "hub_prox_on": (ph.phase_timing(True) or {}).get(
+                "seconds_per_call", {}).get("solve"),
+            "lagrangian_prox_off": (lag.phase_timing(False) or {}).get(
+                "seconds_per_call", {}).get("solve")},
+        "launches_per_engine": per_engine, "launches": launches,
+        "demotions": len(demotions), "peak_gb": peak_gb}))
+    del wheel, hub, ph, lag, xhat, factors, data, st, q
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return launches, err, failures
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1261,6 +1441,12 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     ref = native_reference(dev, batch)
+    # the batch's device cache (core/spbase) still holds the native
+    # engines' dense A; the df32 cell ships only the split pair, so its
+    # peak must not count that copy
+    batch.__dict__.pop("_dev_cache", None)
+    gc.collect()
+    torch.cuda.empty_cache()
     ph, failures = df32_path(dev, batch, native, ref)
     if failures:
         raise RuntimeError("df32 path failed: " + "; ".join(failures))
@@ -1269,9 +1455,13 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     mixed_check(dev)
-    launches += chunk_launches
+    wheel_launches, wheel_err, failures = wheel_path(dev)
+    if failures:
+        raise RuntimeError("wheel path failed: " + "; ".join(failures))
+    launches += chunk_launches + wheel_launches
     # the largest difference at any shape of the path
-    timing["max_abs_err"] = max(timing["max_abs_err"], chunk_err)
+    timing["max_abs_err"] = max(timing["max_abs_err"], chunk_err,
+                                wheel_err)
     entry = {"name": "admm_block", "route": "cuda",
              "source": "mpisppy_tpu_torch/ops/kernels/csrc/admm_block.cu",
              "replaces": "mpisppy_tpu/ops/kernels/pallas_kernel.py:100",

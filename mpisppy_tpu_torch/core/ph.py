@@ -26,6 +26,14 @@ ships a shared A as the split-f32 pair (core/spbase), every mode shares
 one equilibration and scaled split, the engine's QPData.A becomes a
 ScaledView over it, and the chunked loop flows one (rho_scale, factor)
 pair from chunk to chunk.
+
+The surfaces the wheel's cylinders call: nonant fixing, fixed-mode
+solves (``solve_loop(fixed=True)``: the fully pinned factorization),
+incumbent evaluation (``calculate_incumbent``, the batched
+``evaluate_incumbent_pool``), integer candidates
+(``dive_nonant_candidates``), the hub traffic (``_hub_nonants``) and ``ph_main``'s
+hub hooks (``spcomm.sync()`` after iter 0 and every iteration, the
+spokes' best outer bound, hub termination).
 """
 
 from __future__ import annotations
@@ -40,10 +48,11 @@ from .. import global_toc, obs
 from ..ir.batch import ScenarioBatch
 from ..ops.qp_solver import (QPData, ScaledView, SplitMatrix,
                              qp_cold_state, qp_dual_objective,
-                             qp_reset_rho, qp_setup, qp_setup_like,
-                             qp_solve_mixed, qp_solve_segmented,
-                             stacked_residuals)
-from .spbase import SPBase, compute_xbar
+                             qp_objective, qp_reset_rho, qp_setup,
+                             qp_setup_like, qp_solve_mixed,
+                             qp_solve_segmented, stacked_residuals)
+from ..utils.runtime import to_host
+from .spbase import SPBase, batch_cache, compute_xbar
 
 _log = logging.getLogger("mpisppy_tpu_torch.ph")
 
@@ -121,6 +130,32 @@ def _ph_reduce(x, yA, yB, d, q, c, c0, P0, prob, xbar_w, memberships, idx,
         slot_slices=slot_slices)
     return xn, xbar_new, xsqbar_new, W_new, conv, base_obj, solved_obj, \
         dual_obj
+
+
+def _pool_assemble(lb, ub, l, u, c, c0, vals, pin_mask, idx, sidx, pidx):
+    """Chunk assembly of the batched incumbent-pool evaluation: gather
+    the chunk's scenario rows and pin the candidates' nonant boxes
+    (l = u = x̂ on the pinned slots). Row r of a pool solve is
+    (candidate pidx[r], scenario sidx[r]): the pool axis rides the
+    batch axis, so the chunk is an ordinary shared-factor solve."""
+    lb_c, ub_c = lb[sidx], ub[sidx]
+    v = vals[pidx]                                   # (rows, K)
+    lb_c = lb_c.index_copy(1, idx, torch.where(pin_mask, v, lb_c[:, idx]))
+    ub_c = ub_c.index_copy(1, idx, torch.where(pin_mask, v, ub_c[:, idx]))
+    return lb_c, ub_c, l[sidx], u[sidx], c[sidx], c0[sidx]
+
+
+def _pool_rows_zeroed(st, keep):
+    """``st`` with the warm-start iterates of the pool rows whose
+    candidate came back INFEASIBLE zeroed (as new tensors): an
+    infeasible solve's iterates are diverged, and zero iterates are a
+    valid warm start under any rho_scale, so the factor and scale
+    trajectory are kept."""
+    def r(a):
+        return torch.where(keep.unsqueeze(-1) if a.ndim > 1 else keep,
+                           a, 0.0)
+    return st._replace(x=r(st.x), yA=r(st.yA), yB=r(st.yB), zA=r(st.zA),
+                       zB=r(st.zB))
 
 
 def _hot_eps(prox_on, sub_eps, sub_eps_hot):
@@ -249,7 +284,8 @@ def _set_row(t, r, v):
 
 class PHBase(SPBase):
     def __init__(self, batch: ScenarioBatch, options=None, rho_setter=None,
-                 extensions=None, dtype=None, device=None, mesh=None):
+                 extensions=None, converger=None, dtype=None, device=None,
+                 mesh=None):
         if mesh is not None:
             raise _not_ported("the scenario-axis device mesh")
         super().__init__(batch, options, dtype, device=device)
@@ -319,8 +355,13 @@ class PHBase(SPBase):
                 f" with subproblem_precision={self.sub_precision!r}"
             raise _not_ported("problem shrinking" + with_prec)
         self._kernel_plans = {}
+        # ADMM block launches of plans already dropped (the live plans
+        # book their own; kernel_launches sums both)
+        self._retired_launches = 0
         self.rho_setter = rho_setter
         self.extensions = extensions
+        self.converger_cls = converger
+        self.converger = None
 
         S, K = batch.S, batch.K
         t, dev = self.dtype, self.device
@@ -361,6 +402,15 @@ class PHBase(SPBase):
         self._blacklist_calls = {}
         self._chunk_idx_cache = {}
         self._phase_times = {}
+        # batched incumbent-pool evaluation: per-(pool, chunk) warm
+        # states (see evaluate_incumbent_pool)
+        self._pool_states = {}
+
+    @property
+    def kernel_launches(self) -> int:
+        """ADMM block launches made by this engine (cuda backend)."""
+        return self._retired_launches + sum(
+            p.launches for p in self._kernel_plans.values())
 
     # ------------- observability plumbing -------------
     def _trace_note(self, etype, msg, **fields):
@@ -397,26 +447,65 @@ class PHBase(SPBase):
                                                         self.rho[0]))
         return d._replace(P_diag=d.P_diag.index_add(1, idx, self.rho))
 
-    def _get_factors(self, prox_on: bool):
+    def _get_factors(self, prox_on: bool, fixed: bool = False,
+                     full: bool = False):
         """Cached per-mode factorization (invalidated on rho change).
+
+        ``fixed=True`` builds factors for fully-pinned-nonant solves
+        (incumbent evaluation): the nonant boxes become equalities
+        there, and the ADMM bound-row rho must be eq-boosted for those
+        columns or the solve crawls. The boost pattern depends only on
+        WHICH columns are pinned, not the values, so one factorization
+        serves every candidate x̂. ``full`` is the JAX package's bypass
+        of an active shrink plan; the port has no shrinking, so every
+        factorization is full.
+
         Each mode runs its own setup (equilibration + scaled matrix),
-        except in df32: there every mode shares ONE equilibration and
-        scaled split (qp_setup_like over the first mode's factors),
-        since another (m, n) split pair per mode would cost gigabytes
-        at the scale the representation exists for, and the engine's
-        raw split A is swapped for a ScaledView over the scaled one, so
-        the raw pair frees. The cached tensors are never written in
-        place."""
-        key = bool(prox_on)
+        except in df32: there every mode, and every engine over the
+        same batch (the batch device cache, core/spbase), shares ONE
+        equilibration and scaled split (qp_setup_like over the base
+        factors), since another (m, n) split pair per mode or engine
+        would cost gigabytes at the scale the representation exists
+        for; the engine's raw split A is swapped for a ScaledView over
+        the scaled one, so the raw pair frees. The cached tensors are
+        never written in place."""
+        key = ("fixed", bool(prox_on)) if fixed else bool(prox_on)
         if key not in self._factors:
             d = self._data_with_prox(prox_on)
+            d_setup = d
+            if fixed:
+                # pin the boxes only for the rho-pattern detection; the
+                # cached data stays unpinned (the step applies
+                # fixed_vals through fixed_mask at solve time)
+                idx = self.nonant_idx
+                d_setup = d._replace(lb=d.lb.index_fill(1, idx, 0.0),
+                                     ub=d.ub.index_fill(1, idx, 0.0))
+            is_split = isinstance(self.qp_data.A, (SplitMatrix, ScaledView))
             base = self._split_base
             if base is not None:
-                fac = qp_setup_like(base, d)
+                fac = qp_setup_like(base, d_setup)
+            elif is_split:
+                # cross-ENGINE sharing of the base, serialized under the
+                # batch cache's lock (cylinder threads build factors on
+                # their first solves)
+                cache, lock = batch_cache(self.batch)
+                with lock:
+                    bkey = ("factors_base", str(self.dtype),
+                            str(self.device))
+                    base = cache.get(bkey)
+                    if base is not None:
+                        fac = qp_setup_like(base, d_setup)
+                    else:
+                        fac = base = qp_setup(d_setup, q_ref=self.c)
+                        cache[bkey] = fac
+                        # from here on every engine reads A through the
+                        # scaled view; the raw pair frees once the last
+                        # engine's qp_data drops it
+                        cache[("A", str(self.dtype), str(self.device),
+                               True)] = ScaledView(fac.A_s, fac.D, fac.E)
+                self._split_base = base
             else:
-                fac = qp_setup(d, q_ref=self.c)
-                if isinstance(fac.A_s, SplitMatrix):
-                    self._split_base = fac
+                fac = qp_setup(d_setup, q_ref=self.c)
             if isinstance(fac.A_s, SplitMatrix) \
                     and isinstance(self.qp_data.A, SplitMatrix):
                 view = ScaledView(fac.A_s, fac.D, fac.E)
@@ -447,32 +536,37 @@ class PHBase(SPBase):
         return plan
 
     def invalidate_factors(self):
-        """Call after changing rho: drops the prox-on factors, plans and
-        solver states (chunked ones included); a new rho also earns
-        every blacklisted chunk and scenario a fresh recovery chance."""
+        """Call after changing rho: drops the prox-on factors (fixed
+        mode's too), plans and solver states (chunked ones included); a
+        new rho also earns every blacklisted chunk and scenario a fresh
+        recovery chance."""
+        self._retired_launches = self.kernel_launches
         self._kernel_plans.clear()
         for cache in (self._factors, self._qp_states, self._chunk_states):
             cache.pop(True, None)
+            cache.pop(("fixed", True), None)
+        self._pool_states.clear()
         self._chunk_no_retry.clear()
         self._hospital_no_retry.clear()
         self._blacklist_calls.clear()
         self._chunk_idx_cache.clear()
 
-    def _ensure_state(self, prox_on=True):
+    def _ensure_state(self, prox_on=True, fixed=False):
         """Per-mode solver state (the KKT factor depends on the prox
-        term); x/y/z warm-start across modes. Always a QPState: a
-        chunked mode's concatenated view is materialized (fresh factor,
-        the view's iterates as warm start)."""
-        key = bool(prox_on)
+        term and, for ``fixed``, the pinned columns); x/y/z warm-start
+        across modes. Always a QPState: a chunked mode's concatenated
+        view is materialized (fresh factor, the view's iterates as warm
+        start)."""
+        key = ("fixed", bool(prox_on)) if fixed else bool(prox_on)
         st = self._qp_states.get(key)
         if isinstance(st, _ChunkStateView):
-            factors, d = self._get_factors(prox_on)
+            factors, d = self._get_factors(prox_on, fixed)
             st = qp_cold_state(factors, d)._replace(
                 x=st.x, yA=st.yA, yB=st.yB, zA=st.zA, zB=st.zB)
             self._qp_states[key] = st
             return st
         if key not in self._qp_states:
-            factors, d = self._get_factors(prox_on)
+            factors, d = self._get_factors(prox_on, fixed)
             st = qp_cold_state(factors, d)
             other = self._warm_source(key)
             if other is not None and other.x.shape == st.x.shape \
@@ -542,22 +636,24 @@ class PHBase(SPBase):
         return self._chunk_states[key]
 
     # ------------- the PH step -------------
-    def solve_loop(self, w_on=True, prox_on=True, update=True,
+    def solve_loop(self, w_on=True, prox_on=True, update=True, fixed=False,
                    dispatch=None):
         """One batched solve pass in the given mode (ref. phbase.py:999
         solve_loop) + Compute_Xbar + Update_W. Returns the per-scenario
-        solved objective (with the W term when w_on). With
-        ``subproblem_chunk`` below S the solve microbatches over scenario
-        chunks (_solve_loop_chunked)."""
+        solved objective (with the W term when w_on). ``fixed=True``
+        selects the eq-boosted factorization for fully-pinned solves.
+        With ``subproblem_chunk`` below S the solve microbatches over
+        scenario chunks (_solve_loop_chunked)."""
         if dispatch is not None:
             raise _not_ported("the dispatch-masked solve (APH φ-dispatch)")
         obs.counter_add("ph.solve_loop_calls")
         chunk = int(self.options.get("subproblem_chunk", 0) or 0)
         if 0 < chunk < self.batch.S:
-            return self._solve_loop_chunked(chunk, w_on, prox_on, update)
-        qp_state = self._ensure_state(prox_on)
-        factors, data = self._get_factors(prox_on)
-        skey = bool(prox_on)
+            return self._solve_loop_chunked(chunk, w_on, prox_on, update,
+                                            fixed)
+        qp_state = self._ensure_state(prox_on, fixed)
+        factors, data = self._get_factors(prox_on, fixed)
+        skey = ("fixed", bool(prox_on)) if fixed else bool(prox_on)
         ent = self._phase_times.setdefault(
             skey, {"acc": {"assemble": 0.0, "solve": 0.0, "gate": 0.0,
                            "reduce": 0.0},
@@ -607,7 +703,8 @@ class PHBase(SPBase):
         self._ext("post_solve")
         return solved_obj
 
-    def _solve_loop_chunked(self, chunk, w_on, prox_on, update):
+    def _solve_loop_chunked(self, chunk, w_on, prox_on, update,
+                            fixed=False):
         """Scenario microbatching: S scenarios solved in ceil(S/chunk)
         shared-factor solve calls, then one global membership reduce.
         Needs shared structure (one A and P for every scenario: the
@@ -628,8 +725,8 @@ class PHBase(SPBase):
            objectives and the certified dual bound per chunk on the
            accepted solutions and runs one global x̄/W reduction.
         Per-phase wall-clock and gate syncs land in ``phase_timing()``."""
-        key = bool(prox_on)
-        factors, data = self._get_factors(prox_on)
+        key = ("fixed", bool(prox_on)) if fixed else bool(prox_on)
+        factors, data = self._get_factors(prox_on, fixed)
         if factors.A_s.ndim != 2:
             raise ValueError(
                 "subproblem_chunk requires a shared-structure batch "
@@ -640,7 +737,7 @@ class PHBase(SPBase):
         states = self._ensure_chunk_states(key, factors, data, slices)
         plan = self._kernel_plan(key, factors, chunk)
         split_mode = isinstance(factors.A_s, SplitMatrix)
-        kw = dict(prox_on=key, precision=self.sub_precision,
+        kw = dict(prox_on=bool(prox_on), precision=self.sub_precision,
                   sub_max_iter=self.sub_max_iter, sub_eps=self.sub_eps,
                   sub_eps_hot=self.sub_eps_hot,
                   sub_eps_dua_hot=self.sub_eps_dua_hot,
@@ -682,7 +779,7 @@ class PHBase(SPBase):
                 d_c, self.c[idx_c], self.W[idx_c], self.xbar[idx_c],
                 self.rho[idx_c], self.nonant_idx,
                 self._fixed_mask[idx_c], self._fixed_vals[idx_c], ws,
-                w_on=bool(w_on), prox_on=key)
+                w_on=bool(w_on), prox_on=bool(prox_on))
             return d_c._replace(lb=bl_c, ub=bu_c), q_c
 
         inputs = [_assemble(ci) for ci in range(len(slices))] \
@@ -739,7 +836,7 @@ class PHBase(SPBase):
                     sum(int(rec[0].iters) for rec in solved_chunks))
         _lap("solve")
         # pass 2 — bounded recovery of chunks far above the gate
-        thr = max(100 * _hot_eps(key, self.sub_eps, self.sub_eps_hot),
+        thr = max(100 * _hot_eps(bool(prox_on), self.sub_eps, self.sub_eps_hot),
                   1e-2)
         # THE GATE: every recovery/hospital/standing decision below
         # reads this host copy of every chunk's pri_rel (kept current by
@@ -825,7 +922,7 @@ class PHBase(SPBase):
         if bool(self.options.get("subproblem_hospital", True)) \
                 and not isinstance(data.A, (SplitMatrix, ScaledView)):
             gate_syncs += self._hospitalize(key, slices, solved_chunks,
-                                            data, thr, bool(w_on), key,
+                                            data, thr, bool(w_on), bool(prox_on),
                                             kw, pri_host=pri_host)
         # standing casualties: rows still above the gate enter x̄/W with
         # their loose solutions this iteration; say so when anything
@@ -1108,6 +1205,354 @@ class PHBase(SPBase):
     def Eobjective_value(self):
         return float(self.Eobjective(self._last_base_obj))
 
+    # ------------- fixing (ref. phbase.py:413, xhat_tryer.py:126) -------
+    def fix_nonants(self, values, mask=None):
+        """Pin nonant slots to ``values`` ((S, K) or (K,)); ``mask``
+        ((S, K) or (K,) bool) selects the slots, default all."""
+        S, K = self.batch.S, self.batch.K
+
+        def dev(a, dtype):
+            if not isinstance(a, torch.Tensor):
+                a = torch.as_tensor(np.asarray(a))
+            return a.to(device=self.device, dtype=dtype).expand(S, K)
+
+        self._fixed_vals = dev(values, self.dtype)
+        self._fixed_mask = (torch.ones((S, K), dtype=torch.bool,
+                                       device=self.device)
+                            if mask is None else dev(mask, torch.bool))
+
+    def unfix_nonants(self):
+        self._fixed_mask = torch.zeros((self.batch.S, self.batch.K),
+                                       dtype=torch.bool, device=self.device)
+
+    # ------------- incumbent evaluation (ref. xhat_tryer.py:126-182) ----
+    @property
+    def nonant_integer_mask(self):
+        """(K,) bool: which nonant slots are integer variables."""
+        return np.asarray(self.batch.integer)[np.asarray(
+            self.batch.nonant_idx)]
+
+    def round_nonants(self, vals):
+        """Round integer nonant slots to the nearest integer (the
+        incumbent heuristics' stand-in for MIP feasibility of
+        first-stage vars). Host numpy in and out."""
+        vals = to_host(vals, np.float64)
+        return np.where(self.nonant_integer_mask, np.round(vals), vals)
+
+    def calculate_incumbent(self, xhat_vals, feas_tol=None, pin_mask=None):
+        """Fix nonants at ``xhat_vals`` ((K,) or (S, K)), solve with
+        W/prox off, and return the expected objective, or None if any
+        scenario's subproblem is infeasible at that x̂ (ref.
+        xhat_tryer.py:159-182, xhatbase.py:129-134). Feasibility = the
+        primal residual below ``feas_tol``, absolute or relative.
+
+        ``pin_mask`` ((K,) bool, default all): pin only those nonant
+        slots. Models whose nonant blocks hold DERIVED variables (UC's
+        startup indicators, determined by the commitments) leave those
+        to the solve. The engine's solutions, objectives and fixings
+        are restored afterwards: this can run while a hub or another
+        spoke reads them."""
+        if feas_tol is None:
+            feas_tol = float(self.options.get("xhat_feas_tol", 1e-4))
+        saved = (self._fixed_mask, self._fixed_vals, self.x,
+                 getattr(self, "yA", None), getattr(self, "yB", None),
+                 getattr(self, "_last_base_obj", None),
+                 getattr(self, "_last_solved_obj", None),
+                 getattr(self, "_last_dual_obj", None))
+        self.fix_nonants(self.round_nonants(xhat_vals), mask=pin_mask)
+        try:
+            # integer columns OUTSIDE the nonant set (second-stage
+            # integers) need a dive to integral values (ref.
+            # xhatbase.py:117 solves fixed-nonant MIPs)
+            n = self.batch.n
+            nonant_cols = np.zeros(n, bool)
+            nonant_cols[np.asarray(self.batch.nonant_idx)] = True
+            rec_ints = np.asarray(self.batch.integer) & ~nonant_cols
+            if rec_ints.any() and self.options.get("xhat_dive_integers",
+                                                   True):
+                factors, d0 = self._get_factors(False, fixed=True)
+                idx = self.nonant_idx
+                d = d0._replace(
+                    lb=d0.lb.index_copy(1, idx, torch.where(
+                        self._fixed_mask, self._fixed_vals, d0.lb[:, idx])),
+                    ub=d0.ub.index_copy(1, idx, torch.where(
+                        self._fixed_mask, self._fixed_vals, d0.ub[:, idx])))
+                st = self._ensure_state(False, fixed=True)
+                x, obj, feasible, _ = self._dive_in_chunks(
+                    factors, d, self.c, self.c0, st, rec_ints,
+                    max_iter=self.sub_max_iter, eps=self.sub_eps,
+                    feas_tol=feas_tol, polish_chunk=self.sub_polish_chunk)
+                if not bool(feasible.all()):
+                    return None
+                return float(self.Eobjective(obj))
+            self.solve_loop(w_on=False, prox_on=False, update=False,
+                            fixed=True)
+            st = self._qp_states[("fixed", False)]
+            pri = to_host(st.pri_res)
+            rel = to_host(st.pri_rel)
+            if not np.all((pri <= feas_tol) | (rel <= feas_tol)):
+                # an infeasible candidate leaves a DIVERGED state behind
+                # (blown rho_scale, huge duals): warm-starting the NEXT
+                # candidate from it can "converge" by the corrupt
+                # scale's relative criteria to a wrong objective. Drop
+                # it, the chunked mode's per-chunk states too, so the
+                # next evaluation restarts clean
+                self._qp_states.pop(("fixed", False), None)
+                self._chunk_states.pop(("fixed", False), None)
+                return None
+            return self.Eobjective_value()
+        finally:
+            (self._fixed_mask, self._fixed_vals, self.x, self.yA, self.yB,
+             self._last_base_obj, self._last_solved_obj,
+             self._last_dual_obj) = saved
+
+    def _dive_in_chunks(self, factors, d, q, c0, st, imask, **kw):
+        """core.mip.dive_integers with scenario microbatching. Dives
+        have no cross-scenario coupling (each scenario pins its own
+        columns), so chunking is exact."""
+        from .mip import dive_integers
+
+        chunk = int(self.options.get("subproblem_chunk", 0) or 0)
+        S = self.batch.S
+        if not (chunk and chunk < S):
+            return dive_integers(factors, d, q, c0, st, imask, **kw)
+        if factors.A_s.ndim != 2:
+            raise ValueError("subproblem_chunk requires a shared-"
+                             "structure batch (see _solve_loop_chunked)")
+        n = d.lb.shape[-1]
+        imask_b = torch.as_tensor(np.asarray(imask), dtype=torch.bool,
+                                  device=self.device).expand(S, n)
+        q_b = q.expand(S, n)
+        c0_b = c0.expand(S)
+        xs, objs, feas = [], [], []
+        for idx_c, real in self._chunk_index(chunk):
+            d_c = d._replace(l=d.l[idx_c], u=d.u[idx_c],
+                             lb=d.lb[idx_c], ub=d.ub[idx_c])
+            st_c = st._replace(
+                x=st.x[idx_c], yA=st.yA[idx_c], yB=st.yB[idx_c],
+                zA=st.zA[idx_c], zB=st.zB[idx_c],
+                pri_res=st.pri_res[idx_c], dua_res=st.dua_res[idx_c],
+                pri_rel=st.pri_rel[idx_c], dua_rel=st.dua_rel[idx_c])
+            x, o, f, _ = dive_integers(factors, d_c, q_b[idx_c],
+                                       c0_b[idx_c], st_c, imask_b[idx_c],
+                                       **kw)
+            xs.append(x[:real])
+            objs.append(o[:real])
+            feas.append(f[:real])
+        return torch.cat(xs), torch.cat(objs), torch.cat(feas), st
+
+    def dive_nonant_candidates(self, X=None, feas_tol=None, max_iter=None,
+                               dive_slots=None):
+        """Per-scenario INTEGER-FEASIBLE nonant schedules via the batched
+        dive: incumbent candidates for the x̂ spokes on integer models.
+        Every scenario's subproblem dives to integer feasibility on the
+        NONANT integer mask, prox-regularized toward ``X`` (the hub's
+        consensus) when given (ref. xhatshufflelooper_bounder.py:108
+        uses solved MIP scenario values; this is the batched analog).
+
+        ``dive_slots`` ((K,) bool, default all): restrict the dive to
+        those nonant slots' integer columns — the candidate side of
+        calculate_incumbent's ``pin_mask``.
+
+        Returns host (cands (S, K), feasible (S,) bool)."""
+        if feas_tol is None:
+            # the df32 residual floor under heavily pinned bounds sits
+            # near 1e-3; consumers that need certainty re-evaluate the
+            # winners exactly (xhat_exact_eval / host oracle)
+            feas_tol = 5e-3 if self.sub_precision == "df32" else 1e-3
+        n = self.batch.n
+        idx_np = np.asarray(self.batch.nonant_idx)
+        imask = np.zeros(n, bool)
+        imask[idx_np] = np.asarray(self.batch.integer)[idx_np]
+        if dive_slots is not None:
+            keep = np.zeros(n, bool)
+            keep[idx_np[np.asarray(dive_slots, bool)]] = True
+            imask &= keep
+        if not imask.any():
+            xn = self._hub_nonants() if X is None else X
+            return to_host(xn), np.ones(self.batch.S, bool)
+        prox_on = X is not None
+        factors, d = self._get_factors(prox_on, full=True)
+        if prox_on:
+            Xt = torch.as_tensor(np.array(X, dtype=np.float64),
+                                 dtype=self.dtype, device=self.device)
+            q = self.c.index_add(1, self.nonant_idx, -self.rho * Xt)
+        else:
+            q = self.c
+        st = self._ensure_state(prox_on)
+        kw = {}
+        pf = self.options.get("xhat_dive_pin_frac")
+        if pf is not None:
+            kw["pin_frac"] = int(pf)
+        mr = self.options.get("xhat_dive_rounds")
+        if mr is not None:
+            kw["max_rounds"] = int(mr)
+        x, _, feasible, _ = self._dive_in_chunks(
+            factors, d, q, self.c0, st, imask,
+            max_iter=int(max_iter or min(self.sub_max_iter, 1500)),
+            eps=max(self.sub_eps, 1e-6), feas_tol=feas_tol,
+            polish_chunk=self.sub_polish_chunk, **kw)
+        return to_host(x)[:, idx_np], to_host(feasible)
+
+    def _hub_nonants(self):
+        """(S, K) latest subproblem nonant values for cylinder traffic
+        (ref. phbase.py:562-617 nonant flat caches)."""
+        return self.nonants_of(self.x)
+
+    # ------------- batched incumbent-pool evaluation -------------
+    def _pool_chunk_index(self, P, chunk):
+        """(scenario_idx, candidate_idx, real) per pool chunk: pool
+        solves linearize the (candidate, scenario) grid as rows
+        r = p*S + s and microbatch them like the PH hot loop (the tail
+        chunk pads by repeating its last row, so every call has one
+        shape). Cached beside the PH chunk index."""
+        S = self.batch.S
+        rows = P * S
+        key = ("pool", P, chunk, S)
+        if key not in self._chunk_idx_cache:
+            out = []
+            for i in range(0, rows, chunk):
+                r = np.arange(i, min(i + chunk, rows))
+                real = r.size
+                if real < chunk:
+                    r = np.concatenate([r, np.full(chunk - real, r[-1])])
+                out.append((torch.as_tensor(r % S, device=self.device),
+                            torch.as_tensor(r // S, device=self.device),
+                            real))
+            self._chunk_idx_cache[key] = out
+        return self._chunk_idx_cache[key]
+
+    def evaluate_incumbent_pool(self, pool, pin_mask=None, feas_tol=None):
+        """Batched fix-and-dive evaluation of a (P, K) candidate pool
+        (ops/incumbent): every candidate's pinned nonant slots are
+        fixed (l = u = x̂) across ALL scenarios, the continuous recourse
+        re-solves through the engine's solve path (the pool rows are
+        more chunks of it, ``subproblem_kernel_mode`` honored), and the
+        feasibility screen and Eobjective land in ONE stacked
+        device-to-host verdict per call. Returns host ``(objs (P,),
+        feasible (P,) bool)`` with infeasible candidates' objectives at
+        +inf. Equivalent to P ``calculate_incumbent`` calls; shapes the
+        chunked solver cannot batch (per-scenario A) or that need the
+        recourse-integer dive run those calls instead."""
+        if feas_tol is None:
+            feas_tol = float(self.options.get("xhat_feas_tol", 1e-4))
+        if not isinstance(pool, torch.Tensor):
+            pool = torch.as_tensor(np.asarray(pool))
+        pool = pool.to(device=self.device, dtype=self.dtype)
+        P, S = int(pool.shape[0]), self.batch.S
+        n = self.batch.n
+        idx_np = np.asarray(self.batch.nonant_idx)
+        nonant_cols = np.zeros(n, bool)
+        nonant_cols[idx_np] = True
+        rec_ints = np.asarray(self.batch.integer, bool) & ~nonant_cols
+        factors, d0 = self._get_factors(False, fixed=True)
+        if (rec_ints.any() and self.options.get("xhat_dive_integers",
+                                                True)) \
+                or factors.A_s.ndim != 2:
+            objs = np.full(P, np.inf)
+            feas = np.zeros(P, bool)
+            for p in range(P):
+                v = self.calculate_incumbent(pool[p], feas_tol=feas_tol,
+                                             pin_mask=pin_mask)
+                if v is not None:
+                    objs[p] = v
+                    feas[p] = True
+            obs.counter_add("incumbent.gate_syncs", P)
+            return objs, feas
+        from ..ops.incumbent import pool_verdict
+        K = self.batch.K
+        pin = np.ones(K, bool) if pin_mask is None \
+            else np.asarray(pin_mask, bool)
+        imask = torch.as_tensor(self.nonant_integer_mask,
+                                device=self.device)
+        vals = torch.where(imask, torch.round(pool), pool)
+        pmb = torch.as_tensor(pin, device=self.device)
+        rows = P * S
+        copt = int(self.options.get("subproblem_chunk", 0) or 0)
+        chunk = copt if (copt and copt < rows) else rows
+        slices = self._pool_chunk_index(P, chunk)
+        plan = self._kernel_plan(("pool", chunk), factors, chunk)
+        kw = dict(prox_on=False, precision=self.sub_precision,
+                  sub_max_iter=self.sub_max_iter, sub_eps=self.sub_eps,
+                  sub_eps_hot=self.sub_eps_hot,
+                  sub_eps_dua_hot=self.sub_eps_dua_hot,
+                  tail_iter=self.sub_tail_iter,
+                  stall_rel=self.sub_stall_rel, segment=self.sub_segment,
+                  polish_hot=self.sub_polish_hot,
+                  polish_chunk=self.sub_polish_chunk,
+                  segment_lo=self.sub_segment_lo,
+                  ir_sweeps=self.sub_ir_sweeps, kernel=plan,
+                  # FIXED stepsize: shared-mode rho adaptation is a
+                  # geometric mean over the batch rows, and a pool
+                  # always holds infeasible members whose diverging
+                  # ratios would contaminate the shared scalar
+                  adaptive_rho=False)
+        ck = (P, chunk)
+        states = self._pool_states.get(ck)
+        if states is None:
+            # ONE cold state serves every chunk (identical shapes, and
+            # nothing writes a state in place)
+            sidx0, pidx0, _ = slices[0]
+            lb0, ub0, l0, u0, _, _ = _pool_assemble(
+                d0.lb, d0.ub, d0.l, d0.u, self.c, self.c0, vals, pmb,
+                self.nonant_idx, sidx0, pidx0)
+            st0 = qp_cold_state(factors, d0._replace(lb=lb0, ub=ub0,
+                                                     l=l0, u=u0))
+            states = self._pool_states[ck] = [st0] * len(slices)
+        split_mode = isinstance(factors.A_s, SplitMatrix)
+        prev_st = None
+        outs = []
+        for ci, (sidx, pidx, _) in enumerate(slices):
+            lb_c, ub_c, l_c, u_c, q_c, c0_c = _pool_assemble(
+                d0.lb, d0.ub, d0.l, d0.u, self.c, self.c0, vals, pmb,
+                self.nonant_idx, sidx, pidx)
+            d_c = d0._replace(lb=lb_c, ub=ub_c, l=l_c, u=u_c)
+            st_in = states[ci]
+            if split_mode and prev_st is not None:
+                # df32 chunks FLOW one (rho_scale, factor) pair, as the
+                # chunked hot loop does
+                st_in = st_in._replace(L=prev_st.L,
+                                       rho_scale=prev_st.rho_scale)
+            st, x, _, _ = _solver_call(factors, d_c, q_c, st_in, **kw)
+            prev_st = st
+            if split_mode:
+                st = st._replace(L=None)
+            states[ci] = st
+            outs.append((qp_objective(d_c, q_c, c0_c, x),
+                         st.pri_res, st.pri_rel))
+        if split_mode and prev_st is not None:
+            for ci in range(len(states)):
+                states[ci] = states[ci]._replace(
+                    L=prev_st.L, rho_scale=prev_st.rho_scale)
+        obj_rows = torch.cat([o for o, _, _ in outs])[:rows]
+        pri_res = torch.cat([r for _, r, _ in outs])[:rows]
+        pri_rel = torch.cat([r for _, _, r in outs])[:rows]
+        live = torch.as_tensor(np.arange(S) < self._S_orig,
+                               device=self.device)
+        v = to_host(pool_verdict(obj_rows, pri_res, pri_rel, self.prob,
+                                    live, feas_tol, P=P, S=S))
+        # THE one stacked device-to-host read of the round
+        obs.counter_add("incumbent.gate_syncs")
+        if obs.enabled():
+            obs.counter_add("xfer.d2h_bytes", v.nbytes)
+            if plan.mode == "fused":
+                obs.counter_add("kernel.fused_iters",
+                                sum(int(s.iters) for s in states))
+        feas = v[1] > 0.5
+        if not feas.all():
+            # cold-reset the infeasible candidates' rows before the
+            # states warm-start the next round; tail-chunk pad rows
+            # duplicate the LAST candidate's rows and inherit its verdict
+            keep = np.repeat(feas, S)
+            keep = np.concatenate(
+                [keep, np.full(len(slices) * chunk - rows, feas[-1])])
+            for ci in range(len(states)):
+                kc = torch.as_tensor(keep[ci * chunk:(ci + 1) * chunk],
+                                     device=self.device)
+                states[ci] = _pool_rows_zeroed(states[ci], kc)
+        objs = np.where(feas, v[0], np.inf)
+        return objs, feas
+
     # ------------- extension hooks (ref. extensions/extension.py:14) ----
     def _ext(self, hook):
         if self.extensions is not None:
@@ -1133,8 +1578,23 @@ class PH(PHBase):
         self._iter = 0
         obs.event("ph.iter0", {"trivial_bound": self.trivial_bound})
         self._ext("post_iter0")
+        if self.converger_cls is not None:
+            self.converger = self.converger_cls(self)
         global_toc(f"PH iter 0: trivial bound = {self.trivial_bound:.4f}",
                    self.verbose)
+        if self.spcomm is not None:
+            # iter-0 sync: push the first W / nonants and collect any
+            # bounds the spokes produced while the device ran iter 0
+            # (the reference's hub first syncs inside iterk_loop, ref.
+            # phbase.py:1522)
+            self.spcomm.sync()
+            self.update_best_bound(
+                getattr(self.spcomm, "BestOuterBound", None))
+            if self.spcomm.is_converged():
+                global_toc("PH iter 0: hub termination", self.verbose)
+                if finalize:
+                    return self.post_loops()
+                return self.conv
 
         # Iter k loop (ref. phbase.py:1472 iterk_loop)
         for it in range(1, self.max_iterations + 1):
@@ -1150,6 +1610,20 @@ class PH(PHBase):
                 obs.event("ph.iteration", {"iter": it, "conv": self.conv,
                                            "seconds": t_end - t_it})
             self._ext("miditer")
+            if self.spcomm is not None:
+                self.spcomm.sync()
+                # spoke bounds (device-dual or exact-oracle) flow back
+                # to the engine's best-bound bookkeeping
+                self.update_best_bound(
+                    getattr(self.spcomm, "BestOuterBound", None))
+                if self.spcomm.is_converged():
+                    global_toc(f"PH iter {it}: hub termination",
+                               self.verbose)
+                    break
+            if self.converger is not None and self.converger.is_converged():
+                global_toc(f"PH iter {it}: converger termination",
+                           self.verbose)
+                break
             if self.conv is not None and self.conv < self.convthresh:
                 global_toc(f"PH iter {it}: conv={self.conv:.3e} < thresh",
                            self.verbose)

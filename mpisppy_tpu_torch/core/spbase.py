@@ -7,9 +7,19 @@ per-tree-node reductions are membership matmuls (ref. spbase.py:311
 _create_communicators), and a batch whose scenarios share one
 constraint matrix and quadratic keeps them unbatched, so the solver
 factors ONE (n, n) KKT matrix for the whole batch.
+
+Per-batch device cache (``batch_cache``): every in-process cylinder of
+a wheel builds an engine over the SAME host batch, so the shipped
+shared matrix and the bound vectors are cached on the batch, keyed by
+(field, dtype, device), and shared by every engine instead of each
+holding its own copy (reference UC: 2.7 GB of A per engine). Torch
+tensors are mutable: no consumer writes a cached tensor in place, the
+rule the chunked path keeps for its shared states.
 """
 
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import torch
@@ -40,6 +50,30 @@ def ship_shared_matrix(A2d, dtype, device, split=False):
     hi_np, lo_np = split_f32_np(A)
     return SplitMatrix(torch.as_tensor(hi_np).to(device),
                        torch.as_tensor(lo_np).to(device), struct=struct)
+
+
+_CACHE_LOCK = threading.Lock()
+
+
+def batch_cache(batch):
+    """(cache dict, lock) of ``batch``'s device cache, created on first
+    use. Cylinder threads build engines concurrently, so every build of
+    a cached entry runs under the lock: otherwise each thread would put
+    its own multi-GB copy on the device before any cache write landed."""
+    with _CACHE_LOCK:
+        cache = getattr(batch, "_dev_cache", None)
+        if cache is None:
+            cache = batch._dev_cache = {"_lock": threading.Lock()}
+    return cache, cache["_lock"]
+
+
+def cached(batch, key, fn):
+    """``fn()`` once per (batch, key), shared by every engine."""
+    cache, lock = batch_cache(batch)
+    with lock:
+        if key not in cache:
+            cache[key] = fn()
+        return cache[key]
 
 
 def compute_xbar(memberships, slot_slices, weights, xn):
@@ -115,16 +149,24 @@ class SPBase:
             if split and t != torch.float64:
                 raise ValueError("subproblem_precision='df32' needs "
                                  f"dtype=float64; got {t}")
-            A_dev = ship_shared_matrix(A_np if A_np.ndim == 2 else A_np[0],
-                                       t, dev, split=split)
+            A2d = A_np if A_np.ndim == 2 else A_np[0]
+            A_dev = cached(b, ("A", str(t), str(dev), split),
+                           lambda: ship_shared_matrix(A2d, t, dev,
+                                                      split=split))
             P_dev = ship_stacked(P_np[0], t, dev)
+
+            def vec(name):
+                return cached(b, (name, str(t), str(dev)),
+                              lambda: ship_stacked(getattr(b, name), t,
+                                                   dev))
         else:
             A_dev = ship_stacked(A_np, t, dev)
             P_dev = self.P_diag
-        self.qp_data = QPData(P_dev, A_dev, ship_stacked(b.l, t, dev),
-                              ship_stacked(b.u, t, dev),
-                              ship_stacked(b.lb, t, dev),
-                              ship_stacked(b.ub, t, dev))
+
+            def vec(name):
+                return ship_stacked(getattr(b, name), t, dev)
+        self.qp_data = QPData(P_dev, A_dev, vec("l"), vec("u"), vec("lb"),
+                              vec("ub"))
         self.memberships = [ship_stacked(b.tree.membership(s + 1), t, dev)
                             for s in range(b.tree.num_stages - 1)]
         self.slot_slices = b.stage_slot_slices

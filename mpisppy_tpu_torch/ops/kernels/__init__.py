@@ -54,6 +54,9 @@ class KernelPlan:
     # host copy of factors.sigma, read once here so no solve reads a
     # device scalar back
     sigma_host: float | None = None
+    # ADMM block launches made through this plan (plans are per engine
+    # and mode, so this books launches per engine)
+    launches: int = 0
 
     def descriptor(self) -> dict:
         return {"mode": self.mode, "backend": self.backend,
@@ -139,9 +142,11 @@ def kernel_solve(plan: KernelPlan, factors, data, q, state, *,
                     eps_rel_dua=e_dua, stall_rel=stall_rel,
                     adaptive_rho=adaptive_rho)
     if plan.backend == "cuda":
+        n0 = admm_block.thread_launches()
         x_s, yA_s, yB_s, zA_s, zB_s, _, _ = admm_block.fused_admm_block(
             factors, data, q, state, n_steps=max_iter,
             sigma=plan.sigma_host)
+        plan.launches += admm_block.thread_launches() - n0
         st = state._replace(x=x_s, yA=yA_s, yB=yB_s, zA=zA_s, zB=zB_s)
         st, x, yA, yB = qp_solve(factors, data, q, st, max_iter=0,
                                  **solve_kw)

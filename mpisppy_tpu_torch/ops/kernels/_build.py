@@ -6,6 +6,9 @@ per source, all started together, into ``<repo>/build/kernels`` (the
 file name carries a hash of the source, so an edited kernel is never
 served from a stale build). Libraries are loaded with ``ctypes``. A
 missing ``nvcc`` or a failed build raises: nothing falls back.
+Cylinder threads may reach their first launch together, so building
+and loading run under one lock (the temporary file name is per
+process, not per thread).
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -24,6 +28,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: dict = {}
+_LOCK = threading.Lock()
 # per-source build record: {"seconds": float, "log": str (ptxas report)}
 BUILD_INFO: dict = {}
 
@@ -70,7 +75,8 @@ def build_all() -> dict:
 
 def load(stem: str) -> ctypes.CDLL:
     """The loaded library built from ``csrc/<stem>.cu``."""
-    lib = _LIBS.get(stem)
-    if lib is None:
-        lib = _LIBS[stem] = ctypes.CDLL(str(build_all()[stem]))
-    return lib
+    with _LOCK:
+        lib = _LIBS.get(stem)
+        if lib is None:
+            lib = _LIBS[stem] = ctypes.CDLL(str(build_all()[stem]))
+        return lib

@@ -29,6 +29,7 @@ tiled and untiled calls.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -37,11 +38,21 @@ from ..qp_solver import LInv, _scaled_problem
 __all__ = ["LAUNCHES", "SCEN_GROUP", "SCEN_TILE_TARGET",
            "admm_block_launches", "admm_block_plain", "block_schedule",
            "fused_admm_block", "launch_plan", "pick_scen_tile",
-           "scope_supported"]
+           "scope_supported", "thread_launches"]
 
 # CUDA kernel launches made by fused_admm_block (admm_block_launches per
-# call); the plain CPU path launches nothing and adds nothing
+# call); the plain CPU path launches nothing and adds nothing. Cylinder
+# threads launch concurrently: the global total is bumped under a lock,
+# and each thread also keeps its own count (thread_launches), from
+# which the kernel layer books launches per engine.
 LAUNCHES = 0
+_LAUNCH_LOCK = threading.Lock()
+_TLS = threading.local()
+
+
+def thread_launches() -> int:
+    """Kernel launches made by the calling thread so far."""
+    return getattr(_TLS, "count", 0)
 
 # Tile geometry of csrc/admm_block.cu, which refuses a schedule planned
 # for another: the col orientation (y = v·B) gives a CTA COL_TILE output
@@ -272,7 +283,9 @@ def _launch(ops, sigma, n_steps, alpha, l_inv_pair):
     err = fn(ptrs, c_strides, c_dims, c_scal, c_sched, int(n_steps),
              int(bool(l_inv_pair)), ctypes.c_void_p(stream),
              ctypes.byref(launches))
-    LAUNCHES += launches.value
+    with _LAUNCH_LOCK:
+        LAUNCHES += launches.value
+    _TLS.count = thread_launches() + launches.value
     if err == _ERR_SCHEDULE:
         raise RuntimeError("admm_block: the kernel refused the tile "
                            f"schedule {plan['sched_ints']} for m={m}, "

@@ -244,6 +244,36 @@ def _Ax(A, x):
     return torch.bmm(A, x.unsqueeze(-1)).squeeze(-1)
 
 
+def host_dense_A(A):
+    """Host numpy f64 of a QPData.A under any representation. A
+    ScaledView at df32 scale would need a multi-GB device-to-host pull:
+    consumers must use the device paths (_Ax, _ATy, support_touch)."""
+    import numpy as np
+    if isinstance(A, ScaledView):
+        raise TypeError("host_dense_A on a ScaledView: reconstructing "
+                        "the dense matrix host-side defeats the view's "
+                        "purpose; use _Ax/_ATy/support_touch on device")
+    if isinstance(A, SplitMatrix):
+        return merged64(A).cpu().numpy()
+    return A.detach().to(torch.float64).cpu().numpy()
+
+
+def support_touch(A, viol):
+    """(S, n) column-touch counts of the (S, m) bool row mask ``viol``
+    through A's sparsity support, on A's device (the dive's targeted
+    repair column selection)."""
+    hi = A
+    if isinstance(A, ScaledView):
+        hi = A.A_s
+    if isinstance(hi, SplitMatrix):
+        hi = hi.hi
+    supp = (hi.abs() > 1e-10).to(torch.float32)
+    v = torch.as_tensor(viol, device=hi.device).to(torch.float32)
+    if hi.ndim == 2:
+        return v @ supp
+    return torch.einsum("sm,smn->sn", v, supp)
+
+
 def _ATy(A, y):
     """Aᵀ y with A in any of _Ax's representations; y (S, m) -> (S, n)."""
     if isinstance(A, ScaledView):
@@ -1089,6 +1119,12 @@ def qp_solve_mixed(factors: QPFactors, data: QPData, q, state: QPState,
         eps_abs_dua=eps_abs_dua, eps_rel_dua=eps_rel_dua,
         stall_rel=stall_rel, ir_sweeps=ir_sweeps)
     return st_hi._replace(iters=lo_total + st_hi.iters), x, yA, yB
+
+
+def qp_objective(data: QPData, q, c0, x):
+    """½x'Px + q'x + c0 per scenario (unscaled)."""
+    return 0.5 * torch.sum(data.P_diag * x * x, dim=-1) \
+        + torch.sum(q * x, dim=-1) + c0
 
 
 def qp_state_duals(factors: QPFactors, state: QPState):

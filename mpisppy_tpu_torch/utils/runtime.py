@@ -7,6 +7,9 @@ to the CPU silently: without a card, the caller has to ask for
 
 from __future__ import annotations
 
+import threading
+
+import numpy as np
 import torch
 
 # the port's engine dtype: the solver's certified bounds need f64, and
@@ -22,18 +25,51 @@ def pin_precision() -> None:
     torch.set_float32_matmul_precision("highest")
 
 
+_LINALG_READY = set()
+_LINALG_LOCK = threading.Lock()
+
+
+def _init_cuda_linalg(dev: torch.device) -> None:
+    """Load torch's CUDA linear-algebra backend once, from the thread
+    that builds the engine. Its lazy loader is not safe to enter from
+    two threads at once ("lazy wrapper should be called at most once"),
+    and the wheel's cylinder threads each factorize on their first
+    solve."""
+    with _LINALG_LOCK:
+        if dev in _LINALG_READY:
+            return
+        eye = torch.eye(2, dtype=torch.float64, device=dev)
+        L = torch.linalg.cholesky(eye)
+        torch.linalg.solve_triangular(L, eye, upper=False)
+        torch.linalg.inv(eye)
+        torch.cuda.synchronize(dev)
+        _LINALG_READY.add(dev)
+
+
 def resolve_device(device=None) -> torch.device:
     """``None`` means the CUDA device; raise when there is none. An
-    explicit ``"cpu"`` (or any other device) is taken as given."""
+    explicit ``"cpu"`` (or any other device) is taken as given. A CUDA
+    device gets its linear-algebra backend loaded here."""
     pin_precision()
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "mpisppy_tpu_torch runs on a CUDA device and none is "
                 "available; pass device='cpu' to run on the CPU")
-        return torch.device("cuda")
+        device = "cuda"
     dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device!r} requested but CUDA is not "
-                           "available")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {device!r} requested but CUDA is "
+                               "not available")
+        _init_cuda_linalg(dev)
     return dev
+
+
+def to_host(a, dtype=None) -> np.ndarray:
+    """Host numpy copy of a tensor on any device (``np.asarray`` of a
+    CUDA tensor raises), or of any array-like: the one way cylinder
+    code reads engine state."""
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu().numpy()
+    return np.asarray(a, dtype=dtype)

@@ -5,6 +5,7 @@ refuse to run an entry point on the CPU unless asked to."""
 import ast
 import os
 import pkgutil
+import re
 import subprocess
 import sys
 
@@ -31,7 +32,27 @@ def test_every_module_imports_with_jax_poisoned():
     mods = _modules()
     for m in ("mpisppy_tpu_torch.ops.kernels.admm_block",
               "mpisppy_tpu_torch.ops.kernels.reference",
-              "mpisppy_tpu_torch.ops.packed"):
+              "mpisppy_tpu_torch.ops.packed",
+              # the wheel slice
+              "mpisppy_tpu_torch.__main__",
+              "mpisppy_tpu_torch.core.mip",
+              "mpisppy_tpu_torch.ops.incumbent",
+              "mpisppy_tpu_torch.cylinders.hub",
+              "mpisppy_tpu_torch.cylinders.spoke",
+              "mpisppy_tpu_torch.cylinders.spcommunicator",
+              "mpisppy_tpu_torch.cylinders.lagrangian_bounder",
+              "mpisppy_tpu_torch.cylinders.xhat_bounders",
+              "mpisppy_tpu_torch.cylinders.slam_heuristic",
+              "mpisppy_tpu_torch.cylinders.supervisor",
+              "mpisppy_tpu_torch.convergers.converger",
+              "mpisppy_tpu_torch.extensions.extension",
+              "mpisppy_tpu_torch.utils.config",
+              "mpisppy_tpu_torch.utils.vanilla",
+              "mpisppy_tpu_torch.utils.sputils",
+              "mpisppy_tpu_torch.utils.synchronizer",
+              "mpisppy_tpu_torch.utils.certify",
+              "mpisppy_tpu_torch.utils.host_oracle",
+              "mpisppy_tpu_torch.utils._oracle_worker"):
         assert m in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
@@ -60,14 +81,41 @@ def _imported_roots(path):
 
 
 def test_no_jax_or_reference_import_anywhere():
+    files = _python_files()
+    assert len(files) > 40
+    for path in files:
+        bad = _imported_roots(path) & {"jax", "jaxlib", "mpisppy_tpu"}
+        assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
+
+
+def _python_files():
     files = [os.path.join(REPO, "chip_smoke.py")]
     for dirpath, _, names in os.walk(PKG):
         files += [os.path.join(dirpath, n) for n in names
                   if n.endswith(".py")]
-    assert len(files) > 15
-    for path in files:
-        bad = _imported_roots(path) & {"jax", "jaxlib", "mpisppy_tpu"}
-        assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
+    return files
+
+
+def test_no_string_names_a_jax_package_module():
+    """No string literal in the port (docstrings included) names a
+    module of the JAX package as a dotted path: a subprocess spawned
+    with ``-m <that path>`` (the host oracle's workers) would run
+    JAX-package code, which the import scan cannot see."""
+    pat = re.compile(r"(?<![\w.])mpisppy_tpu\.[A-Za-z_]")
+    for path in _python_files():
+        tree = ast.parse(open(path, encoding="utf-8").read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Constant) and isinstance(node.value,
+                                                             str):
+                assert not pat.search(node.value), \
+                    f"{os.path.relpath(path, REPO)}:{node.lineno} names " \
+                    f"a JAX-package module: {node.value[:80]!r}"
+    # the oracle workers run the port's own worker module
+    from mpisppy_tpu_torch.utils import _oracle_worker
+    assert _oracle_worker.__name__ == "mpisppy_tpu_torch.utils._oracle_worker"
+    src = open(os.path.join(PKG, "utils", "host_oracle.py"),
+               encoding="utf-8").read()
+    assert '"-m", _oracle_worker.__name__' in src
 
 
 def test_entry_point_without_device_raises_without_a_card(monkeypatch):

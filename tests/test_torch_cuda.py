@@ -4,8 +4,9 @@ only the port is installed:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Without a CUDA device every test here skips: the kernel has no CPU
-mode."""
+Without a CUDA device every test marked ``cuda`` skips: the kernel has
+no CPU mode (the build lock's test stubs the compiler and runs
+everywhere)."""
 
 import numpy as np
 import pytest
@@ -258,3 +259,128 @@ def test_tf32_pin_holds_on_the_card(cuda):
     got = (a.float().to(cuda) @ b.float().to(cuda)).double().cpu()
     ref = a.float().double() @ b.float().double()
     assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_two_threads_launch_bit_equal_to_serial(cuda):
+    """The block launched from two threads at once (the wheel's cylinder
+    threads share the card's default stream) gives the bits of two
+    serial launches; each thread's own count books its launches, and
+    the two add up to the global count."""
+    import threading
+    f, d, q, st = _tiny(10, cuda, m=301, n=199)
+    serial = [admm_block.fused_admm_block(f, d, q, st, n_steps=20,
+                                          scen_tile=0) for _ in range(2)]
+    torch.cuda.synchronize()
+    before = admm_block.LAUNCHES
+    out, counts = [None, None], [0, 0]
+
+    def run(i):
+        n0 = admm_block.thread_launches()
+        out[i] = admm_block.fused_admm_block(f, d, q, st, n_steps=20,
+                                             scen_tile=0)
+        torch.cuda.synchronize()
+        counts[i] = admm_block.thread_launches() - n0
+
+    ts = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    for got, ref in zip(out, serial):
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    per_call = admm_block.admm_block_launches(20, False)
+    assert counts == [per_call, per_call]
+    assert admm_block.LAUNCHES - before == sum(counts)
+
+
+@pytest.mark.cuda
+def test_per_engine_launch_counts_add_up(cuda):
+    """Two engines over one UC batch, each solving through the block:
+    each books its own launches (through its kernel plans) and the two
+    add up to the module's global count."""
+    from mpisppy_tpu_torch.core.ph import PHBase
+    from mpisppy_tpu_torch.ir.batch import build_batch
+    from mpisppy_tpu_torch.models import uc
+    batch = build_batch(uc.scenario_creator, uc.make_tree(4),
+                        creator_kwargs={"num_gens": 3, "num_hours": 6},
+                        vector_patch=uc.scenario_vector_patch)
+    opts = {"defaultPHrho": 100.0, "subproblem_kernel_mode": "fused",
+            "subproblem_kernel_backend": "cuda", "subproblem_max_iter": 40}
+    a, b = PHBase(batch, dict(opts)), PHBase(batch, dict(opts))
+    before = admm_block.LAUNCHES
+    a.solve_loop(w_on=False, prox_on=False)
+    b.solve_loop(w_on=False, prox_on=False)
+    b.solve_loop(w_on=True, prox_on=True)
+    torch.cuda.synchronize()
+    assert a.kernel_launches > 0 and b.kernel_launches > a.kernel_launches
+    assert a.kernel_launches + b.kernel_launches \
+        == admm_block.LAUNCHES - before
+    assert a.qp_data.A is b.qp_data.A      # the batch's device cache
+
+
+def test_locked_build_runs_once_under_two_threads(monkeypatch, tmp_path):
+    """Two threads' first launches race on _build.load: under its lock
+    the library is built and loaded once. Runs everywhere: nvcc and the
+    loader are stubbed, the lock is what is held."""
+    import threading
+    from mpisppy_tpu_torch.ops.kernels import _build
+    calls = {"build": 0, "load": 0}
+
+    def fake_build_all():
+        calls["build"] += 1
+        import time
+        time.sleep(0.2)              # a slow build widens the race
+        return {"admm_block": tmp_path / "lib.so"}
+
+    def fake_cdll(path):
+        calls["load"] += 1
+        return object()
+
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(_build, "build_all", fake_build_all)
+    monkeypatch.setattr(_build.ctypes, "CDLL", fake_cdll)
+    libs = [None, None]
+
+    def run(i):
+        libs[i] = _build.load("admm_block")
+
+    ts = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    assert calls == {"build": 1, "load": 1}
+    assert libs[0] is libs[1] is not None
+
+
+@pytest.mark.cuda
+def test_locked_build_compiles_once_on_the_card(cuda, monkeypatch,
+                                                 tmp_path):
+    """The real build into an empty directory from two threads at once:
+    one nvcc per source, one load, both threads get the same library."""
+    import subprocess
+    import threading
+    from mpisppy_tpu_torch.ops.kernels import _build
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    n_src = len(list(_build.CSRC.glob("*.cu")))
+    real_popen, spawned = subprocess.Popen, []
+
+    def counting_popen(cmd, *a, **kw):
+        spawned.append(cmd)
+        return real_popen(cmd, *a, **kw)
+
+    monkeypatch.setattr(_build.subprocess, "Popen", counting_popen)
+    libs = [None, None]
+
+    def run(i):
+        libs[i] = _build.load("admm_block")
+
+    ts = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    assert len(spawned) == n_src
+    assert libs[0] is libs[1] is not None
