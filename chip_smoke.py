@@ -63,8 +63,31 @@
    outer >= the trivial bound, and holds the block against its plain
    version at full width from the Lagrangian engine's prox-off W-on
    state;
+11. spins the wheel that ``python -m mpisppy_tpu_torch uc --hub aph
+   --dispatch-frac 0.25 --subproblem-chunk 16 --with-xhatshuffle``
+   builds (``aph_path``: the RunConfig through utils/vanilla's hub and
+   spoke dicts and utils/sputils.spin_the_wheel) on the chunked path's
+   S = 40 batch: the APH hub for APH_ITERS iterations, the x̂ spoke with
+   the bench's oracle recipe; checks the block launches against the
+   plan (three chunk calls at iters 0 and 1, one per partial iteration),
+   no demotion, one gate sync per iteration, the dispatch counters, the
+   chunked-skip path from iter 2, bit-unchanged undispatched rows of x
+   across every partial pass, sum_s p_s W_s = 0, finite bounds with the
+   trivial bound at most the incumbent, and holds the block against its
+   plain version on one dispatched chunk's rows gathered from the row
+   store, pad rows included;
+12. spins the scenario-sharded APH wheel (``aph_shard_wheel``:
+   core/aph_shard.spin_aph_shard_wheel) on the full-width instance at
+   S = APH_SHARD_SCENARIOS, two shard processes and the x̂ spoke as a
+   process, every process on the card; checks finite bounds with outer
+   <= inner and that each shard ran the block with no demotion (the
+   shards' launch counts come back beside their results), then holds
+   the block against its plain version at a shard's shapes (shard 0's
+   rows at full width, from an engine built here with the shards'
+   options after iter 0 and one APH iteration);
 then prints one {"kernels": [...]} line whose launches count phases 3,
-5 and 10 and whose max_abs_err is the largest of phases 4, 5 and 10.
+5, 10, 11 and 12 and whose max_abs_err is the largest of phases 4, 5,
+10, 11 and 12.
 The last line is {"ok": true, "device": {...}}; any failed check raises.
 """
 
@@ -127,6 +150,17 @@ XHAT_ORACLE = {"xhat_oracle_candidates": True,
                "xhat_device_prescreen": False,
                "xhat_union_fallback": True, "xhat_scen_limit": 3,
                "xhat_oracle_time_limit": 120.0, "xhat_oracle_gap": 5e-3}
+
+# APH (phases 11 and 12): the chunked path's batch under φ-dispatch of
+# a quarter of the scenarios (10 of 40: one 16-row chunk call per
+# partial iteration), and the sharded wheel at S = 4 (cut from the
+# chunked path's 40 for the run's time; the widths stay the reference
+# instance's)
+APH_ITERS = 5
+APH_FRAC = 0.25
+APH_SHARD_SCENARIOS = 4
+APH_SHARDS = 2
+APH_SHARD_ITERS = 4
 
 # kernel vs plain (see compare): the multiple of the plain version's
 # own summation-order spread that the bar allows, and the multiple of
@@ -787,7 +821,9 @@ def chunked_path(dev, batch, t_batch):
         "unchunked_max_rel_diff": {"xbar": d_xbar, "W": d_W}}))
     native = {"iter0_eobjective": snap.iter0_eobjective,
               "iter0_max_pri_rel": pri0, "eobjective": eobj,
-              "trivial_bound": tbound}
+              "trivial_bound": tbound,
+              "ph_s_per_iteration": [r["seconds"] for r in rows],
+              "ph_main_s": t_main}
     return scaling_ops, launches, err, native, failures
 
 
@@ -1403,6 +1439,308 @@ def wheel_path(dev):
     return launches, err, failures
 
 
+class APHLog(IterLog):
+    """APH hub extension: per iteration the wall seconds, the engine's
+    block launches, the dispatch record, and whether the rows of x that
+    the iteration did not dispatch kept their bits across its solve."""
+
+    def __init__(self):
+        super().__init__()
+        self.x = None
+        self.n0 = 0
+
+    def post_iter0(self, ph):
+        super().post_iter0(ph)
+        self.rows.append({"iter": 0, "launches": ph.kernel_launches,
+                          "seconds": self.t - self.t0})
+        self.n0 = ph.kernel_launches
+
+    def miditer(self, ph):
+        self.x = ph.x.clone()
+
+    def enditer(self, ph):
+        import torch
+        now = time.perf_counter()
+        mask = torch.as_tensor(ph._dispatched, device=ph.x.device)
+        st = ph._aph_status
+        self.rows.append({
+            "iter": ph._iter, "conv": ph.conv, "seconds": now - self.t,
+            "launches": ph.kernel_launches - self.n0,
+            "dispatched": st["dispatched"], "solve_path": st["solve_path"],
+            "phi_neg": st.get("phi_neg"),
+            "undispatched_unchanged": bool(torch.equal(ph.x[~mask],
+                                                       self.x[~mask])),
+            "ids": [int(i) for i in ph._dispatched.nonzero()[0]]})
+        self.n0 = ph.kernel_launches
+        self.t = now
+
+
+def aph_config(dev):
+    """Phase 11's RunConfig: what ``python -m mpisppy_tpu_torch uc --hub
+    aph --dispatch-frac 0.25 --subproblem-chunk 16 --with-xhatshuffle``
+    builds, with the main path's engine options, the chunked cell's
+    hospital off, and phase 10's x̂ recipe."""
+    from mpisppy_tpu_torch.utils.config import (AlgoConfig, RunConfig,
+                                                SpokeConfig)
+    base = dict(PH_OPTS)
+    algo = AlgoConfig(
+        default_rho=base["defaultPHrho"], max_iterations=APH_ITERS,
+        convthresh=-1.0, subproblem_max_iter=base["subproblem_max_iter"],
+        subproblem_eps=base["subproblem_eps"],
+        subproblem_polish_chunk=base["subproblem_polish_chunk"],
+        subproblem_kernel_mode=base["subproblem_kernel_mode"],
+        subproblem_kernel_backend=base["subproblem_kernel_backend"],
+        dispatch_frac=APH_FRAC)
+    xhat = dict(base, **XHAT_ORACLE, xhat_exact_eval=True,
+                xhat_min_interval=5.0, xhat_pin_vars=["u"],
+                xhat_eval_milp=False)
+    return RunConfig(
+        model="uc", num_scens=CHUNK_SCENARIOS,
+        model_kwargs=dict(SLICE_INSTANCE), hub="aph", algo=algo,
+        hub_options=dict(base, PHIterLimit=APH_ITERS, convthresh=-1.0,
+                         subproblem_chunk=CHUNK,
+                         subproblem_hospital=False),
+        spokes=[SpokeConfig(kind="xhatshuffle", options=xhat)],
+        device=str(dev))
+
+
+def aph_block_compare(aph, idx, st, label):
+    """The block against its plain version on an APH engine's prox-on
+    operands: rows ``idx`` of the engine's data and of its W and z (the
+    prox centre of an APH solve), warm state ``st`` (``idx``'s rows)."""
+    from mpisppy_tpu_torch.core.ph import _ph_assemble
+    factors, data = aph._get_factors(True)
+    d = data._replace(l=data.l[idx], u=data.u[idx], lb=data.lb[idx],
+                      ub=data.ub[idx])
+    q, bl, bu = _ph_assemble(d, aph.c[idx], aph.W[idx], aph.z[idx],
+                             aph.rho[idx], aph.nonant_idx,
+                             aph._fixed_mask[idx], aph._fixed_vals[idx],
+                             None, w_on=True, prox_on=True)
+    return compare(factors, d._replace(lb=bl, ub=bu), q, st, 20, label)
+
+
+def aph_path(dev, batch, chunked):
+    """Phase 11: the APH wheel on the chunked path's batch. ``chunked``:
+    phase 5's per-iteration seconds, printed beside this path's.
+    Returns (block launches of the wheel, the block's largest difference
+    from its plain version on gathered padded rows, the list of failed
+    checks); prints one JSON line."""
+    import math
+    import numpy as np
+    import torch
+    from mpisppy_tpu_torch import obs
+    from mpisppy_tpu_torch.ops.dispatch import gather_rows
+    from mpisppy_tpu_torch.ops.kernels import admm_block
+    from mpisppy_tpu_torch.utils.sputils import spin_the_wheel
+    from mpisppy_tpu_torch.utils.vanilla import hub_dict, spoke_dict
+
+    cfg = aph_config(dev).validate()
+    hub_d = hub_dict(cfg, batch=batch)
+    spoke_ds = [spoke_dict(cfg, sp, batch=batch) for sp in cfg.spokes]
+    log_ = APHLog()
+    hub_d["opt_kwargs"]["extensions"] = log_
+    on_card = torch.device(dev).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    obs.configure()
+    admm_block.LAUNCHES = 0
+    t0 = log_.t0 = time.perf_counter()
+    wheel = spin_the_wheel(hub_d, spoke_ds)
+    _sync()
+    t_wheel = time.perf_counter() - t0
+    launches = admm_block.LAUNCHES
+    counters = obs.counters_snapshot()
+    demotions = obs.events("kernel.cuda_demotion")
+    obs.shutdown()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    aph = wheel.hub.opt
+    xhat = wheel.spokes[0].opt
+    rows = log_.rows
+    iters = len(rows) - 1
+    per_call = admm_block.admm_block_launches(SLICE_BUDGET, False)
+    n_chunks = -(-CHUNK_SCENARIOS // CHUNK)
+    scnt = math.ceil(APH_FRAC * CHUNK_SCENARIOS)
+    plan = [n_chunks, n_chunks] + [-(-scnt // CHUNK)] * (iters - 1)
+    got = [r["launches"] // per_call for r in rows]
+    outer, inner = wheel.best_outer_bound, wheel.best_inner_bound
+    trivial = getattr(aph, "trivial_bound", None)
+    w_sum = float((aph.prob @ aph.W).abs().max())
+    w_scale = max(1.0, float(aph.W.abs().max()))
+    failures = []
+    if iters != APH_ITERS:
+        failures.append(f"{iters} APH iterations ran, expected {APH_ITERS}")
+    if got != plan[:len(got)] or any(r["launches"] % per_call
+                                     for r in rows):
+        failures.append(f"block calls per iteration {got} (launches "
+                        f"{[r['launches'] for r in rows]}), planned {plan}")
+    if aph.kernel_launches != launches or launches != sum(plan) * per_call:
+        failures.append(f"launches: hub {aph.kernel_launches}, all "
+                        f"{launches}, planned {sum(plan) * per_call}")
+    if demotions or any(p.backend != "cuda"
+                        for p in aph._kernel_plans.values()):
+        failures.append(f"kernel demotion: {demotions}")
+    if counters.get("aph.gate_syncs") != iters:
+        failures.append(f"aph.gate_syncs {counters.get('aph.gate_syncs')}"
+                        f" for {iters} iterations")
+    want = CHUNK_SCENARIOS + scnt * (iters - 1)
+    if counters.get("dispatch.solved_scenarios") != want:
+        failures.append(f"dispatch.solved_scenarios "
+                        f"{counters.get('dispatch.solved_scenarios')}, "
+                        f"expected {want}")
+    for r in rows[2:]:
+        if r["solve_path"] != "chunked-skip" or r["dispatched"] != scnt:
+            failures.append(f"iter {r['iter']}: {r['solve_path']} with "
+                            f"{r['dispatched']} dispatched")
+    if not all(r["undispatched_unchanged"] for r in rows[1:]):
+        failures.append("an undispatched row of x changed in a partial "
+                        "pass")
+    if w_sum > 1e-8 * w_scale:
+        failures.append(f"sum_s p_s W_s = {w_sum:.3e} is not 0")
+    if not (math.isfinite(outer) and math.isfinite(inner)):
+        failures.append(f"bounds not finite: outer {outer}, inner {inner}")
+    elif trivial is None or not trivial <= inner or not outer <= inner:
+        failures.append(f"trivial {trivial} / outer {outer} above the "
+                        f"inner bound {inner}")
+    # the block on one dispatched chunk's operands: the last partial
+    # pass's ids padded to a full chunk, rows gathered from the store
+    ids = np.asarray(rows[-1]["ids"])
+    ids_pad = np.concatenate([ids, np.full(CHUNK - ids.size, ids[-1])])
+    idx = torch.as_tensor(ids_pad, device=dev)
+    store = aph._dispatch_stores[True]
+    st = store._replace(**{k: gather_rows(getattr(store, k), idx)
+                           for k in ("x", "yA", "yB", "zA", "zB",
+                                     "pri_res", "dua_res", "pri_rel",
+                                     "dua_rel")})
+    err, f = aph_block_compare(aph, idx, st, "aph_gathered_padded_rows")
+    failures += f
+    admm_block.LAUNCHES = launches   # the comparison's are not the path's
+    log(json.dumps({
+        "phase": "aph_path", "S": CHUNK_SCENARIOS, "chunk": CHUNK,
+        "dispatch_frac": APH_FRAC, "wheel_s": t_wheel,
+        "aph_s_per_iteration": [r["seconds"] for r in rows],
+        "chunked_ph_s_per_iteration": chunked["ph_s_per_iteration"],
+        "chunked_ph_main_s": chunked["ph_main_s"],
+        "iterations": rows, "block_calls_per_iteration": got,
+        "planned_calls": plan, "launches": launches,
+        "launches_per_engine": {"hub": aph.kernel_launches,
+                                "xhatshuffle": xhat.kernel_launches},
+        "counters": {k: v for k, v in counters.items()
+                     if k.startswith(("aph.", "dispatch."))},
+        "demotions": len(demotions), "trivial_bound": trivial,
+        "best_outer": outer, "best_inner": inner,
+        "sum_p_W_max": w_sum, "gathered_padded_ids": ids_pad.tolist(),
+        "peak_gb": peak_gb}))
+    del wheel, aph, xhat, store, st
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return launches, err, failures
+
+
+def _card_memory_sampler(stop, peak):
+    """Sample the card's used memory (nvidia-smi, MiB, every process on
+    it) until ``stop`` is set; ``peak[0]``: the largest reading."""
+    while not stop.is_set():
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=memory.used",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=30)
+        first = out.stdout.strip().splitlines()[:1]
+        if first and first[0].strip().isdigit():
+            peak[0] = max(peak[0], int(first[0].strip()))
+        stop.wait(1.0)
+
+
+def shard_block_check(cfg):
+    """The block against its plain version at the shapes a shard's solve
+    gives it: shard 0's rows (S / shards of them) against the
+    full-width A and F, with the shard engine's options, from the
+    prox-on state after iter 0 and one APH iteration (masked
+    acceptance: every row of the shard solves). Built in this process
+    after the wheel. Returns (rows, largest difference, failures)."""
+    import torch
+    from mpisppy_tpu_torch.core.aph import APH
+    from mpisppy_tpu_torch.core.aph_shard import _shard_batch, shard_range
+    from mpisppy_tpu_torch.ops.kernels import admm_block
+
+    lo, hi = shard_range(cfg.num_scens, 0, APH_SHARDS)
+    batch = _shard_batch(cfg.model, cfg.num_scens, cfg.model_kwargs, lo, hi)
+    opts = dict(cfg.algo.to_options())
+    opts.update(cfg.hub_options)
+    opts.update(partial_probabilities=True, PHIterLimit=1)
+    saved = admm_block.LAUNCHES
+    aph = APH(batch, opts, device=cfg.device)
+    aph.APH_main(finalize=False)
+    idx = torch.arange(batch.S, device=aph.device)
+    err, failures = aph_block_compare(aph, idx, aph._qp_states[True],
+                                      "aph_shard_rows")
+    admm_block.LAUNCHES = saved   # the check's launches are not the path's
+    return batch.S, err, failures
+
+
+def aph_shard_wheel(dev):
+    """Phase 12: the scenario-sharded APH wheel, every process on the
+    card, then the block against its plain version at a shard's shapes.
+    Returns (block launches of the shards, the block's largest
+    difference from its plain version, the list of failed checks);
+    prints one JSON line."""
+    import math
+    import threading
+    import torch
+    from mpisppy_tpu_torch.core.aph_shard import spin_aph_shard_wheel
+
+    cfg = aph_config(dev)
+    cfg.num_scens = APH_SHARD_SCENARIOS
+    cfg.algo.max_iterations = APH_SHARD_ITERS
+    cfg.algo.dispatch_frac = 0.5
+    cfg.hub_options = {k: v for k, v in cfg.hub_options.items()
+                       if k not in ("subproblem_chunk",
+                                    "subproblem_hospital")}
+    cfg.hub_options["PHIterLimit"] = APH_SHARD_ITERS
+    cfg.validate()
+    stats, peak = [], [0]
+    stop = threading.Event()
+    sampler = threading.Thread(target=_card_memory_sampler,
+                               args=(stop, peak), daemon=True)
+    sampler.start()
+    t0 = time.perf_counter()
+    try:
+        conv, eobj, triv, iters, outer, inner = spin_aph_shard_wheel(
+            cfg, n_shards=APH_SHARDS, join_timeout=600.0,
+            spoke_ready_timeout=300.0, shard_stats=stats)
+    finally:
+        stop.set()
+        sampler.join(timeout=60)
+    t_wheel = time.perf_counter() - t0
+    launches = sum(s["launches"] for s in stats)
+    failures = []
+    if not (math.isfinite(outer) and math.isfinite(inner)):
+        failures.append(f"bounds not finite: outer {outer}, inner {inner}")
+    elif not outer <= inner:
+        failures.append(f"outer bound {outer} above inner bound {inner}")
+    for s in stats:
+        if not (s["device"].startswith("cuda") and s["launches"] > 0
+                and s["backends"] == ["cuda"]):
+            failures.append(f"shard {s['shard']} did not run the block on "
+                            f"the card with no demotion: {s}")
+    rows, err, f = shard_block_check(cfg)
+    failures += f
+    log(json.dumps({
+        "phase": "aph_shard_wheel", "S": APH_SHARD_SCENARIOS,
+        "shards": APH_SHARDS, "wheel_s": t_wheel,
+        "iterations": iters, "conv": conv, "eobjective": eobj,
+        "trivial_bound": triv, "best_outer": outer, "best_inner": inner,
+        "shard_stats": stats, "launches": launches,
+        "block_vs_plain": {"rows": rows, "max_abs_err": err},
+        # per shard process: its torch peak (shard_stats); every process
+        # of the wheel together: the card's used memory at its peak
+        "card_used_mib_peak": peak[0]}))
+    gc.collect()
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    return launches, err, failures
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1451,17 +1789,29 @@ def main():
     if failures:
         raise RuntimeError("df32 path failed: " + "; ".join(failures))
     df32_scaling(ph, native_ms)
-    del ph, batch
+    del ph
+    # the APH path ships the dense A again (phase 11)
+    batch.__dict__.pop("_dev_cache", None)
     gc.collect()
     torch.cuda.empty_cache()
     mixed_check(dev)
     wheel_launches, wheel_err, failures = wheel_path(dev)
     if failures:
         raise RuntimeError("wheel path failed: " + "; ".join(failures))
-    launches += chunk_launches + wheel_launches
+    aph_launches, aph_err, failures = aph_path(dev, batch, native)
+    if failures:
+        raise RuntimeError("aph path failed: " + "; ".join(failures))
+    del batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    shard_launches, shard_err, failures = aph_shard_wheel(dev)
+    if failures:
+        raise RuntimeError("aph shard wheel failed: " + "; ".join(failures))
+    launches += chunk_launches + wheel_launches + aph_launches \
+        + shard_launches
     # the largest difference at any shape of the path
     timing["max_abs_err"] = max(timing["max_abs_err"], chunk_err,
-                                wheel_err)
+                                wheel_err, aph_err, shard_err)
     entry = {"name": "admm_block", "route": "cuda",
              "source": "mpisppy_tpu_torch/ops/kernels/csrc/admm_block.cu",
              "replaces": "mpisppy_tpu/ops/kernels/pallas_kernel.py:100",

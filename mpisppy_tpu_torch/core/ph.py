@@ -388,6 +388,9 @@ class PHBase(SPBase):
         self._qp_states = {}
         # prox_on -> the per-chunk QPStates of chunked mode
         self._chunk_states = {}
+        # mode key -> the full-width row store of dispatch-masked passes
+        # (_dispatch_store)
+        self._dispatch_stores = {}
         self._fixed_mask = torch.zeros((S, K), dtype=torch.bool,
                                        device=dev)
         self._fixed_vals = torch.zeros((S, K), dtype=t, device=dev)
@@ -542,7 +545,8 @@ class PHBase(SPBase):
         recovery chance."""
         self._retired_launches = self.kernel_launches
         self._kernel_plans.clear()
-        for cache in (self._factors, self._qp_states, self._chunk_states):
+        for cache in (self._factors, self._qp_states, self._chunk_states,
+                      self._dispatch_stores):
             cache.pop(True, None)
             cache.pop(("fixed", True), None)
         self._pool_states.clear()
@@ -635,6 +639,67 @@ class PHBase(SPBase):
             self._chunk_states[key] = states
         return self._chunk_states[key]
 
+    def _dispatch_store(self, key, factors, data, slices):
+        """Full-width per-scenario solver-state store of dispatch-masked
+        passes (APH φ-dispatch). The positional per-chunk states of a
+        full pass cannot warm-start a layout that re-partitions every
+        iteration, so partial passes keep ONE (S, ·) row store: chunk
+        states gather their rows on the way in and the successors
+        scatter back after pass 3. Seeded from the mode's chunk states
+        (their scaled iterates, trimmed of chunk pads), or cold zeros
+        when there are none. The store carries one (L, rho_scale), the
+        last chunk's (chunking needs a shared A, so L is (n, n))."""
+        st = self._dispatch_stores.get(key)
+        S = self.batch.S
+        if st is not None and st.x.shape[0] == S:
+            return st
+        chunk_states = self._chunk_states.get(key)
+        if chunk_states:
+            cw = chunk_states[0].x.shape[0]
+            trims = [r for _, r in self._chunk_index(cw)]
+            st = chunk_states[-1]._replace(**{
+                f: torch.cat([getattr(s, f)[:r]
+                              for s, r in zip(chunk_states, trims)])
+                for f in _ChunkStateView._FIELDS})
+        else:
+            idx0 = slices[0][0]
+            d0 = data._replace(l=data.l[idx0], u=data.u[idx0],
+                               lb=data.lb[idx0], ub=data.ub[idx0])
+            st0 = qp_cold_state(factors, d0)
+            st = st0._replace(**{
+                f: torch.zeros((S,) + getattr(st0, f).shape[1:],
+                               dtype=getattr(st0, f).dtype,
+                               device=self.device)
+                for f in _ChunkStateView._FIELDS})
+        self._dispatch_stores[key] = st
+        return st
+
+    def _dispatch_slices(self, dispatch, chunk, key):
+        """(slices, padded ids) of a dispatch-masked pass: the ascending
+        id list microbatched into full ``chunk``-row chunks, the last
+        padded by repeating the last id (the _chunk_index convention).
+        Books the dispatch counters and the shape bucket."""
+        from ..ops import dispatch as dispatch_ops
+        didx = np.asarray(dispatch, dtype=np.int64).ravel()
+        scnt = int(didx.size)
+        if scnt == 0:
+            raise ValueError("dispatch id list is empty")
+        n_dchunks = -(-scnt // chunk)
+        pad_n = n_dchunks * chunk - scnt
+        ids_pad = np.concatenate([didx, np.full(pad_n, didx[-1])]) \
+            if pad_n else didx
+        slices = [(torch.as_tensor(ids_pad[i * chunk:(i + 1) * chunk],
+                                   device=self.device),
+                   min(chunk, scnt - i * chunk))
+                  for i in range(n_dchunks)]
+        dispatch_ops.register_bucket({
+            "n_chunks": n_dchunks, "chunk": chunk, "S": self.batch.S,
+            "mode": _mode_str(key)})
+        obs.counter_add("dispatch.solved_scenarios", scnt)
+        obs.counter_add("dispatch.skipped_scenarios",
+                        max(self._S_orig - scnt, 0))
+        return slices, ids_pad
+
     # ------------- the PH step -------------
     def solve_loop(self, w_on=True, prox_on=True, update=True, fixed=False,
                    dispatch=None):
@@ -643,14 +708,31 @@ class PHBase(SPBase):
         solved objective (with the W term when w_on). ``fixed=True``
         selects the eq-boosted factorization for fully-pinned solves.
         With ``subproblem_chunk`` below S the solve microbatches over
-        scenario chunks (_solve_loop_chunked)."""
-        if dispatch is not None:
-            raise _not_ported("the dispatch-masked solve (APH φ-dispatch)")
+        scenario chunks (_solve_loop_chunked).
+
+        ``dispatch`` (host int array of ascending scenario ids, APH's
+        φ-dispatch): solve ONLY those scenarios. The ids microbatch into
+        full-size chunks and scatter back; every other scenario's
+        solution, duals, warm state and objectives carry forward
+        unchanged. Chunked loop only, and without the W/x̄ update (the
+        caller owns the reduction over a partial solve)."""
         obs.counter_add("ph.solve_loop_calls")
         chunk = int(self.options.get("subproblem_chunk", 0) or 0)
-        if 0 < chunk < self.batch.S:
+        chunked = 0 < chunk < self.batch.S
+        if dispatch is not None:
+            if not chunked:
+                raise ValueError(
+                    "dispatch-masked solves require the chunked loop "
+                    "(subproblem_chunk below S); other engines use "
+                    "masked acceptance")
+            if update:
+                raise ValueError(
+                    "dispatch-masked solves cannot run the W/xbar "
+                    "update: the reduction would mix fresh and stale "
+                    "rows (APH owns its own reduce)")
+        if chunked:
             return self._solve_loop_chunked(chunk, w_on, prox_on, update,
-                                            fixed)
+                                            fixed, dispatch=dispatch)
         qp_state = self._ensure_state(prox_on, fixed)
         factors, data = self._get_factors(prox_on, fixed)
         skey = ("fixed", bool(prox_on)) if fixed else bool(prox_on)
@@ -704,7 +786,7 @@ class PHBase(SPBase):
         return solved_obj
 
     def _solve_loop_chunked(self, chunk, w_on, prox_on, update,
-                            fixed=False):
+                            fixed=False, dispatch=None):
         """Scenario microbatching: S scenarios solved in ceil(S/chunk)
         shared-factor solve calls, then one global membership reduce.
         Needs shared structure (one A and P for every scenario: the
@@ -724,17 +806,35 @@ class PHBase(SPBase):
            it to the hospital (_hospitalize); pass 3 computes the
            objectives and the certified dual bound per chunk on the
            accepted solutions and runs one global x̄/W reduction.
-        Per-phase wall-clock and gate syncs land in ``phase_timing()``."""
+        Per-phase wall-clock and gate syncs land in ``phase_timing()``.
+
+        A dispatch-masked pass (``dispatch``, see solve_loop) runs the
+        same passes over chunks of the dispatched ids only, with chunk
+        states gathered from the mode's full-width row store
+        (_dispatch_store), and scatters the results back into the store,
+        x/yA/yB and the objective vectors instead of reducing."""
         key = ("fixed", bool(prox_on)) if fixed else bool(prox_on)
         factors, data = self._get_factors(prox_on, fixed)
+        if dispatch is None:
+            # a full-width pass supersedes this mode's dispatch store (a
+            # later partial pass re-seeds it from the chunk states)
+            self._dispatch_stores.pop(key, None)
         if factors.A_s.ndim != 2:
             raise ValueError(
                 "subproblem_chunk requires a shared-structure batch "
                 "(every scenario must carry the same A and P; "
                 "per-scenario matrices need per-scenario factors and "
                 "gain nothing from chunking)")
-        slices = self._chunk_index(chunk)
-        states = self._ensure_chunk_states(key, factors, data, slices)
+        if dispatch is None:
+            slices = self._chunk_index(chunk)
+            states = self._ensure_chunk_states(key, factors, data, slices)
+        else:
+            from ..ops.dispatch import gather_rows
+            slices, ids_pad = self._dispatch_slices(dispatch, chunk, key)
+            dstore = self._dispatch_store(key, factors, data, slices)
+            states = [dstore._replace(**{
+                f: gather_rows(getattr(dstore, f), idx)
+                for f in _ChunkStateView._FIELDS}) for idx, _ in slices]
         plan = self._kernel_plan(key, factors, chunk)
         split_mode = isinstance(factors.A_s, SplitMatrix)
         kw = dict(prox_on=bool(prox_on), precision=self.sub_precision,
@@ -952,7 +1052,8 @@ class PHBase(SPBase):
         obs.counter_add("ph.gate_syncs", gate_syncs)
         _lap("gate")
         # pass 3 — per-chunk objectives on the accepted solutions, pad
-        # rows trimmed
+        # rows trimmed (a dispatch pass keeps them: its scatter writes
+        # the padded width, duplicate ids carrying equal rows)
         parts = {k: [] for k in ("x", "yA", "yB", "xn", "base", "solved",
                                  "dual")}
         for ci, (idx_c, real) in enumerate(slices):
@@ -962,10 +1063,11 @@ class PHBase(SPBase):
                 x, yA, yB, d_h, q_h, self.c[idx_c], self.c0[idx_c],
                 self.P_diag[idx_c], self.nonant_idx, self.W[idx_c],
                 w_on=bool(w_on))
+            keep = x.shape[0] if dispatch is not None else real
             for k, v in (("x", x), ("yA", yA), ("yB", yB), ("xn", xn),
                          ("base", base), ("solved", solved),
                          ("dual", dual)):
-                parts[k].append(v[:real])
+                parts[k].append(v[:keep])
         if split_mode and prev_st is not None:
             # UNIFY after the pass: every chunk state adopts the flow's
             # final (rho_scale, factor), so ONE factor persists between
@@ -975,6 +1077,37 @@ class PHBase(SPBase):
                 states[ci] = states[ci]._replace(
                     L=prev_st.L, rho_scale=prev_st.rho_scale)
         cat = {k: torch.cat(v) for k, v in parts.items()}
+        if dispatch is not None:
+            # scatter-back: the dispatched rows' results land in the
+            # full-width arrays; every other row (solution, duals, warm
+            # state, objectives) carries forward untouched. Store rows
+            # take the SCALED post-solve states, x/yA/yB the unscaled
+            # solutions
+            from ..ops.dispatch import scatter_rows
+            ids = torch.as_tensor(ids_pad, device=self.device)
+            last = states[-1]
+            store = dstore._replace(
+                L=last.L, rho_scale=last.rho_scale, iters=last.iters,
+                **{f: scatter_rows(getattr(dstore, f), ids,
+                                   torch.cat([getattr(s, f)
+                                              for s in states]))
+                   for f in _ChunkStateView._FIELDS})
+            self._dispatch_stores[key] = store
+            # the store doubles as this mode's QPState for the read-only
+            # consumers (residual summaries, warm-start transplants)
+            self._qp_states[key] = store
+            self.x = scatter_rows(self.x, ids, cat["x"])
+            self.yA = scatter_rows(self.yA, ids, cat["yA"])
+            self.yB = scatter_rows(self.yB, ids, cat["yB"])
+            self._last_base_obj = scatter_rows(self._last_base_obj, ids,
+                                               cat["base"])
+            self._last_solved_obj = scatter_rows(self._last_solved_obj,
+                                                 ids, cat["solved"])
+            self._last_dual_obj = scatter_rows(self._last_dual_obj, ids,
+                                               cat["dual"])
+            _lap("reduce")
+            self._ext("post_solve")
+            return self._last_solved_obj
         self._qp_states[key] = _ChunkStateView(
             states, [real for _, real in slices])
         self.x, self.yA, self.yB = cat["x"], cat["yA"], cat["yB"]

@@ -116,7 +116,11 @@ class SPBase:
                 "scenario streaming belongs to a later slice of the port "
                 "(see ROADMAP.md)")
         b = batch
-        if abs(float(b.prob.sum()) - 1.0) > 1e-6:
+        # partial_probabilities: this engine holds one SHARD of the
+        # scenario set (core/aph_shard.py), whose scenarios carry their
+        # GLOBAL probabilities and sum to the shard's mass
+        if not self.options.get("partial_probabilities") \
+                and abs(float(b.prob.sum()) - 1.0) > 1e-6:
             raise ValueError("scenario probabilities must sum to 1 "
                              "(ref. spbase.py:443 checks)")
         t, dev = self.dtype, self.device
@@ -177,6 +181,11 @@ class SPBase:
     def Eobjective(self, obj_per_scen):
         """Probability-weighted expected objective (ref. phbase.py:279)."""
         return torch.dot(self.prob, obj_per_scen)
+
+    def scenario_objectives(self, x):
+        """Per-scenario objective values of an (S, n) solution block."""
+        quad = 0.5 * torch.sum(self.P_diag * x * x, dim=-1)
+        return quad + torch.sum(self.c * x, dim=-1) + self.c0
 
     @property
     def xbar_weights(self):

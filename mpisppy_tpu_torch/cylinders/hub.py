@@ -740,9 +740,8 @@ class APHShardHub(PHHub):
     staged on the engine as ``wheel_W`` / ``wheel_X`` before sync()."""
 
     def _hub_arrays(self):
-        raise NotImplementedError(
-            "the scenario-sharded APH wheel is not ported yet (see "
-            "ROADMAP.md A10)")
+        return (np.asarray(self.opt.wheel_W, np.float64).reshape(-1),
+                np.asarray(self.opt.wheel_X, np.float64).reshape(-1))
 
     def main(self):
         raise RuntimeError("APHShardHub is driven by the shard worker's "

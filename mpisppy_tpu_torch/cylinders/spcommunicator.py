@@ -7,9 +7,11 @@ data by comparing ids; ``-1`` is the reserved kill value
 (ref. mpisppy/cylinders/hub.py:356-368). Ownership discipline matches
 Lock/Put/Unlock: only the owner writes, remotes read under the lock.
 
-The backend is an in-process ``threading.Lock`` + numpy buffer;
-``Window.shared(...)``, the JAX package's native shared-memory backend
-for multi-process cylinder layouts, raises in the port (ROADMAP.md A10).
+The default backend is an in-process ``threading.Lock`` + numpy buffer;
+``Window.shared(...)`` swaps in the native shared-memory backend for
+cylinders and scenario shards run as processes (the same protocol over
+POSIX shared memory with a seqlock, ops/native/spwindow.cpp, built from
+source at first use).
 """
 
 from __future__ import annotations
@@ -96,14 +98,67 @@ class Window:
 
     @staticmethod
     def shared(name: str, length: int, create: bool):
-        """The JAX package's native shared-memory backend (the same
+        """The native shared-memory backend (ops/native): the same
         write-id protocol over POSIX shm with a seqlock, for cylinders
-        run as separate processes) needs the native seqlock, which is
-        not ported yet: in-process Windows carry every wheel of the
-        port."""
-        raise NotImplementedError(
-            "shared-memory windows for process wheels need the native "
-            "seqlock, which is not ported yet (see ROADMAP.md A10)")
+        running as separate PROCESSES (the reference's MPI-RMA star,
+        ref. spcommunicator.py:97-124)."""
+        return SharedWindow(name, length, create)
+
+
+class SharedWindow:
+    """One-writer many-reader shared-memory window (see ops/native).
+    ``create=True`` makes the segment (its owner unlinks it on close);
+    ``create=False`` opens an existing one and raises OSError when it
+    is not there yet."""
+
+    KILL = -1
+
+    def __init__(self, name: str, length: int, create: bool):
+        from ..ops import native
+
+        self._lib = native.load()
+        self.name = name
+        self.length = int(length)
+        fn = self._lib.spw_create if create else self._lib.spw_open
+        self._h = fn(name.encode(), self.length)
+        if not self._h:
+            raise OSError(f"could not {'create' if create else 'open'} "
+                          f"shared window {name!r}")
+        self._owner = bool(create)
+
+    def put(self, values) -> int:
+        import ctypes
+
+        values = np.ascontiguousarray(values, dtype=np.float64).reshape(-1)
+        if values.shape[0] != self.length:
+            raise ValueError(f"window length {self.length} != payload "
+                             f"{values.shape[0]}")
+        self._lib.spw_put(self._h, values.ctypes.data_as(
+            ctypes.POINTER(ctypes.c_double)), self.length)
+        return self.read_id()
+
+    def kill(self):
+        # tolerate a closed handle: the terminate sweep may visit a
+        # window another path has since retired
+        if self._h:
+            self._lib.spw_kill(self._h)
+
+    def read(self):
+        import ctypes
+
+        out = np.empty(self.length, dtype=np.float64)
+        wid = self._lib.spw_read(self._h, out.ctypes.data_as(
+            ctypes.POINTER(ctypes.c_double)), self.length)
+        return out, int(wid)
+
+    def read_id(self) -> int:
+        return int(self._lib.spw_read_id(self._h))
+
+    def close(self, unlink=None):
+        if self._h:
+            self._lib.spw_close(self._h, 1 if (self._owner if unlink is None
+                                               else unlink) else 0)
+            self._h = None
 
 
 class SPCommunicator:

@@ -7,13 +7,16 @@ file name carries a hash of the source, so an edited kernel is never
 served from a stale build). Libraries are loaded with ``ctypes``. A
 missing ``nvcc`` or a failed build raises: nothing falls back.
 Cylinder threads may reach their first launch together, so building
-and loading run under one lock (the temporary file name is per
-process, not per thread).
+and loading run under one thread lock; the processes of a process
+wheel may too, so the build also runs under a file lock in the build
+directory (``file_lock``), and each build is renamed into place.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -42,6 +45,21 @@ def _nvcc() -> str:
     return path
 
 
+@contextlib.contextmanager
+def file_lock(path: Path):
+    """An exclusive ``flock`` on ``path`` (created if missing) for the
+    body: builds racing from several processes wait for the first one.
+    The kernel drops the lock when its holder dies, so a killed build
+    leaves no stale lock behind."""
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "a") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
+
+
 def _target(src: Path) -> Path:
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
@@ -51,7 +69,11 @@ def _target(src: Path) -> Path:
 def build_all() -> dict:
     """Compile every source that has no current build, in parallel.
     Returns {stem: path of the shared library}."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with file_lock(BUILD_DIR / ".lock"):
+        return _build_all_locked()
+
+
+def _build_all_locked() -> dict:
     out, procs = {}, []
     for src in sorted(CSRC.glob("*.cu")):
         lib = _target(src)

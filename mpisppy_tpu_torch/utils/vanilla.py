@@ -6,7 +6,7 @@ validated RunConfig into the hub/spoke dict schema spin_the_wheel
 consumes, one factory per cylinder kind. Every cylinder gets its OWN
 engine over one shared host batch, on the run's ``device`` (None = the
 CUDA device). What the port does not run yet raises, naming its
-ROADMAP.md item: hubs other than PH, the spoke kinds whose engines are
+ROADMAP.md item: the L-shaped hub, the spoke kinds whose engines are
 not ported, models other than farmer and uc, bundling, scenario
 streaming, the scenario-axis mesh, checkpoints and the live plane.
 """
@@ -25,7 +25,7 @@ _DTYPES = {"float32": torch.float32, "f32": torch.float32,
 # rest of ROADMAP.md A5b)
 PORTED_MODELS = ("farmer", "uc")
 # hub and spoke kinds whose engines are not ported, with their items
-_UNPORTED_HUBS = {"aph": "A10", "lshaped": "A11"}
+_UNPORTED_HUBS = {"lshaped": "A11"}
 _UNPORTED_SPOKES = {"efmip": "A11", "fwph": "A11", "xhatlshaped": "A11",
                     "cross_scenario": "A11"}
 
@@ -94,11 +94,12 @@ def build_batch_for(cfg: RunConfig):
 
 
 def hub_dict(cfg: RunConfig, batch=None):
-    """ref. vanilla.py:54 ph_hub. ``batch``: optionally a prebuilt batch
-    shared across cylinders (engines never mutate the host arrays;
-    wheel_dicts passes one build to all)."""
+    """ref. vanilla.py:54 ph_hub / aph_hub. ``batch``: optionally a
+    prebuilt batch shared across cylinders (engines never mutate the
+    host arrays; wheel_dicts passes one build to all)."""
+    from ..core.aph import APH
     from ..core.ph import PH
-    from ..cylinders.hub import PHHub
+    from ..cylinders.hub import APHHub, PHHub
 
     refuse_unported(cfg)
     options = cfg.algo.to_options()
@@ -117,8 +118,9 @@ def hub_dict(cfg: RunConfig, batch=None):
     opt_kwargs = {"batch": batch if batch is not None
                   else build_batch_for(cfg),
                   "options": options, "device": cfg.device, **dtype_kw}
-    return {"hub_class": PHHub, "hub_kwargs": hub_kwargs,
-            "opt_class": PH, "opt_kwargs": opt_kwargs}
+    opt_cls, hub_cls = (APH, APHHub) if cfg.hub == "aph" else (PH, PHHub)
+    return {"hub_class": hub_cls, "hub_kwargs": hub_kwargs,
+            "opt_class": opt_cls, "opt_kwargs": opt_kwargs}
 
 
 def spoke_classes(kind: str):

@@ -52,7 +52,13 @@ def test_every_module_imports_with_jax_poisoned():
               "mpisppy_tpu_torch.utils.synchronizer",
               "mpisppy_tpu_torch.utils.certify",
               "mpisppy_tpu_torch.utils.host_oracle",
-              "mpisppy_tpu_torch.utils._oracle_worker"):
+              "mpisppy_tpu_torch.utils._oracle_worker",
+              # APH and the process wheels
+              "mpisppy_tpu_torch.core.aph",
+              "mpisppy_tpu_torch.core.aph_shard",
+              "mpisppy_tpu_torch.ops.dispatch",
+              "mpisppy_tpu_torch.ops.native",
+              "mpisppy_tpu_torch.utils.multiproc"):
         assert m in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
@@ -110,6 +116,21 @@ def test_no_string_names_a_jax_package_module():
                 assert not pat.search(node.value), \
                     f"{os.path.relpath(path, REPO)}:{node.lineno} names " \
                     f"a JAX-package module: {node.value[:80]!r}"
+    # the process wheels spawn the port's own workers and build the
+    # port's own copy of the native windows
+    scanned = {os.path.relpath(p, PKG) for p in _python_files()}
+    assert {"utils/multiproc.py", "core/aph_shard.py",
+            "ops/native/__init__.py"} <= scanned
+    from mpisppy_tpu_torch.core import aph_shard
+    from mpisppy_tpu_torch.ops import native
+    from mpisppy_tpu_torch.utils import multiproc
+    assert multiproc._spoke_worker.__module__ == \
+        "mpisppy_tpu_torch.utils.multiproc"
+    assert aph_shard._shard_worker.__module__ == \
+        "mpisppy_tpu_torch.core.aph_shard"
+    assert aph_shard._model("farmer").__name__ == \
+        "mpisppy_tpu_torch.models.farmer"
+    assert native.SRC.is_relative_to(PKG)
     # the oracle workers run the port's own worker module
     from mpisppy_tpu_torch.utils import _oracle_worker
     assert _oracle_worker.__name__ == "mpisppy_tpu_torch.utils._oracle_worker"

@@ -512,7 +512,9 @@ def test_unported_branches_raise(case, message):
     NotImplementedError naming ROADMAP.md; none runs another path. The
     mixed and df32 precisions run since their slice landed; asked to
     combine with a later slice's branch (shrinking, here) they raise,
-    naming the precision."""
+    naming the precision. The dispatch-masked solve runs since APH
+    landed: it solves only the ids given, and refuses the W/x̄ update
+    (the JAX package's ValueError)."""
     opts = {"subproblem_chunk": 3}
     kw, solve_kw = {}, {}
     if case in ("mixed", "df32"):
@@ -525,7 +527,16 @@ def test_unported_branches_raise(case, message):
     elif case == "stream":
         opts["scenario_source"] = "streamed"
     else:
-        solve_kw["dispatch"] = np.arange(3)
+        ph = PHBase(_port_uc(), opts, device="cpu")
+        ph.solve_loop(w_on=False, prox_on=False)
+        x0 = ph.x.clone()
+        ph.solve_loop(w_on=False, prox_on=False, update=False,
+                      dispatch=np.arange(3))
+        assert torch.equal(ph.x[3:], x0[3:])
+        with pytest.raises(ValueError, match=message):
+            ph.solve_loop(w_on=False, prox_on=False,
+                          dispatch=np.arange(3))
+        return
     with pytest.raises(NotImplementedError,
                        match=f"{message}.*ROADMAP\\.md"):
         ph = PHBase(_port_uc(), opts, device="cpu", **kw)

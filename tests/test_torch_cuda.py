@@ -384,3 +384,99 @@ def test_locked_build_compiles_once_on_the_card(cuda, monkeypatch,
         t.join()
     assert len(spawned) == n_src
     assert libs[0] is libs[1] is not None
+
+
+# ---- APH φ-dispatch: the dispatch layout on the card ----
+
+@pytest.mark.cuda
+def test_gather_scatter_duplicate_pads_on_the_card(cuda):
+    """The dispatch row moves on CUDA tensors: a gather with pad ids
+    repeating the last one, and a scatter of the padded rows (duplicate
+    ids carrying equal rows) that writes exactly them, as on the CPU."""
+    from mpisppy_tpu_torch.ops.dispatch import gather_rows, scatter_rows
+    rng = np.random.default_rng(5)
+    full_h = torch.as_tensor(rng.normal(size=(40, 300)))
+    full = full_h.to(cuda)
+    idx_h = torch.as_tensor([2, 9, 17, 30, 33, 39, 39, 39])
+    idx = idx_h.to(cuda)
+    rows = gather_rows(full, idx)
+    assert torch.equal(rows.cpu(), full_h[idx_h])
+    out = scatter_rows(full, idx, rows * 3.0)
+    torch.cuda.synchronize()
+    ref = scatter_rows(full_h, idx_h, full_h[idx_h] * 3.0)
+    assert torch.equal(out.cpu(), ref)
+    assert torch.equal(full.cpu(), full_h)
+
+
+@pytest.mark.cuda
+def test_block_on_gathered_padded_rows_matches_plain(cuda):
+    """The block on a dispatch pass's operands: chunk-state rows
+    gathered from the full-width row store for the ids [0, 3, 6] padded
+    to a chunk of 4 by repeating 6, against its plain version."""
+    from mpisppy_tpu_torch.core.ph import PH, _ph_assemble
+    from mpisppy_tpu_torch.ir.batch import build_batch
+    from mpisppy_tpu_torch.models import uc
+    from mpisppy_tpu_torch.ops.dispatch import gather_rows
+
+    batch = build_batch(uc.scenario_creator, uc.make_tree(8),
+                        creator_kwargs={"num_gens": 3, "num_hours": 6},
+                        vector_patch=uc.scenario_vector_patch)
+    ph = PH(batch, {"defaultPHrho": 100.0, "PHIterLimit": 1,
+                    "subproblem_kernel_mode": "fused",
+                    "subproblem_kernel_backend": "cuda",
+                    "subproblem_max_iter": 400,
+                    "subproblem_polish_hot": False,
+                    "subproblem_polish_chunk": 2, "subproblem_chunk": 4},
+            device=cuda)
+    ph.ph_main()
+    f, data = ph._get_factors(True)
+    slices, ids_pad = ph._dispatch_slices(np.array([0, 3, 6]), 4, True)
+    assert ids_pad.tolist() == [0, 3, 6, 6]
+    idx, real = slices[0]
+    assert real == 3
+    store = ph._dispatch_store(True, f, data, slices)
+    st = store._replace(**{k: gather_rows(getattr(store, k), idx)
+                           for k in ("x", "yA", "yB", "zA", "zB", "pri_res",
+                                     "dua_res", "pri_rel", "dua_rel")})
+    d = data._replace(l=data.l[idx], u=data.u[idx], lb=data.lb[idx],
+                      ub=data.ub[idx])
+    q, bl, bu = _ph_assemble(d, ph.c[idx], ph.W[idx], ph.xbar[idx],
+                             ph.rho[idx], ph.nonant_idx,
+                             ph._fixed_mask[idx], ph._fixed_vals[idx],
+                             None, w_on=True, prox_on=True)
+    _against_plain_two_orders(f, d._replace(lb=bl, ub=bu), q, st, False)
+
+
+def _child_window_from_the_card(name, length):
+    """A spawned process with its own CUDA context: computes on the card
+    and publishes the result through the shared window."""
+    from mpisppy_tpu_torch.cylinders.spcommunicator import Window
+    v = (torch.arange(length, dtype=torch.float64, device="cuda") * 2.0)
+    w = Window.shared(name, length, create=False)
+    try:
+        w.put(v.cpu().numpy())
+    finally:
+        w.close(unlink=False)
+
+
+@pytest.mark.cuda
+def test_two_processes_open_one_shared_window(cuda):
+    """The process wheels' transport with CUDA in both processes: the
+    parent holds a CUDA context and creates the window, a spawned child
+    opens it and writes a result computed on the card."""
+    import multiprocessing as mp
+    import os
+    from mpisppy_tpu_torch.cylinders.spcommunicator import Window
+    torch.zeros(1, device=cuda)            # the parent's CUDA context
+    name = f"/spwcuda{os.getpid():x}"
+    w = Window.shared(name, 5, create=True)
+    try:
+        p = mp.get_context("spawn").Process(
+            target=_child_window_from_the_card, args=(name, 5))
+        p.start()
+        p.join(timeout=120)
+        assert not p.is_alive() and p.exitcode == 0
+        vals, wid = w.read()
+        assert wid == 1 and vals.tolist() == [0.0, 2.0, 4.0, 6.0, 8.0]
+    finally:
+        w.close()
