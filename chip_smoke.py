@@ -85,9 +85,29 @@
    the block against its plain version at a shard's shapes (shard 0's
    rows at full width, from an engine built here with the shards'
    options after iter 0 and one APH iteration);
+13. spins the L-shaped wheel that ``python -m mpisppy_tpu_torch uc --hub
+   lshaped --with-xhatlshaped`` builds (``lshaped_path``: the RunConfig
+   through utils/vanilla's hub and spoke dicts and
+   utils/sputils.spin_the_wheel) on phase 10's S = 10 batch for
+   LSHAPED_ITERS iterations, PH_OPTS' native options on the cuda block;
+   checks that the hub engine launched the block on its prox-off (eta
+   bounds) and pinned (cut solves) plans with no demotion, a finite
+   outer bound that never decreases and sits at or above the
+   probability-weighted eta bounds, outer <= inner where an inner bound
+   exists, and at each round whose pinned solve passed the engine's
+   feasibility test that every scenario's cut lies below that solve's
+   objective at the round's point (JAX tests/test_lshaped.py's bar);
+   then holds the block against its plain version on the pinned
+   operands at full width;
+14. solves ``python -m mpisppy_tpu_torch uc --EF`` on the reference
+   instance at EF_SCENARIOS scenarios and ``farmer --EF`` on the card
+   (``ef_path``: utils/vanilla.build_batch_for and core/ef.ExtensiveForm)
+   and holds them against the host HiGHS LP of the same EF
+   (tests/test_models.py's band: rel 2e-3, abs 2e-2) and -108390
+   (rel 1e-4);
 then prints one {"kernels": [...]} line whose launches count phases 3,
-5, 10, 11 and 12 and whose max_abs_err is the largest of phases 4, 5,
-10, 11 and 12.
+5, 10, 11, 12 and 13 and whose max_abs_err is the largest of phases 4,
+5, 10, 11, 12 and 13.
 The last line is {"ok": true, "device": {...}}; any failed check raises.
 """
 
@@ -161,6 +181,21 @@ APH_FRAC = 0.25
 APH_SHARD_SCENARIOS = 4
 APH_SHARDS = 2
 APH_SHARD_ITERS = 4
+
+# L-shaped (phase 13): the slice's S = 10 batch, LSHAPED_ITERS
+# iterations (a cut in depth, for time). The EF (phase 14): the
+# reference instance at EF_SCENARIOS (its dense EF matrix is 7.3 GB in
+# f64; S = 10 would not fit the card) with EF_BUDGET ADMM iterations
+# (a cut in depth for the script's time: 12,000 steps landed 1.8e-5
+# from host HiGHS, the band is 2e-3)
+LSHAPED_ITERS = 4
+# the reference-backend cut solve of phase 13's cut-at-point check: the
+# slice's step budget (rho adapts; the dual residual on the dispatch
+# columns still decides whether a cut is finite, at any budget a run
+# can afford)
+REF_CUT_ITERS = SLICE_BUDGET
+EF_SCENARIOS = 2
+EF_BUDGET = 6000
 
 # kernel vs plain (see compare): the multiple of the plain version's
 # own summation-order spread that the bar allows, and the multiple of
@@ -249,6 +284,19 @@ def _drop_g_yB(ops, kw):
     return admm_block.admm_block_plain(*ops, **dict(kw, n_steps=0))
 
 
+def _ulp_perturbed(ops):
+    """The operands with the iterates (x, yA, yB, zA, zB) moved by one
+    unit in the last place, with a seeded random sign per entry."""
+    import torch
+    gen = torch.Generator(device=ops[15].device).manual_seed(0)
+    out = list(ops)
+    for i in range(15, 20):
+        sign = (torch.randint(0, 2, ops[i].shape, generator=gen,
+                              device=ops[i].device) * 2 - 1).to(ops[i].dtype)
+        out[i] = ops[i] * (1.0 + sign * 2.0 ** -52)
+    return out
+
+
 def compare(f, d, q, st, n_steps, label):
     """Kernel vs plain version on the same CUDA inputs. Returns the
     largest absolute difference and the list of failures.
@@ -273,6 +321,7 @@ def compare(f, d, q, st, n_steps, label):
               l_inv_pair=l_inv)
     ref = admm_block.admm_block_plain(*ops, **kw)
     alt = plain_rowwise(ops, **kw)
+    ulp = admm_block.admm_block_plain(*_ulp_perturbed(ops), **kw)
     faults = {
         "one_step_short": admm_block.admm_block_plain(
             *ops, **dict(kw, n_steps=n_steps - 1)),
@@ -281,7 +330,7 @@ def compare(f, d, q, st, n_steps, label):
         "no_g_yB_in_rhs": _drop_g_yB(ops, kw)}
     _sync()
     worst, rows, bars, failures = 0.0, {}, [], []
-    for name, a, b, c in zip(_OUTS, ref, got, alt):
+    for name, a, b, c, u in zip(_OUTS, ref, got, alt, ulp):
         if not bool(torch.isfinite(b).all()):
             failures.append(f"{label}: kernel {name} is not finite")
         diff = float((b - a).abs().max())
@@ -289,6 +338,7 @@ def compare(f, d, q, st, n_steps, label):
         size = float(a.abs().max())
         tol = 1e-9 * max(1.0, size) + BAR_SPREAD * spread
         rows[name] = {"diff": diff, "plain_spread": spread,
+                      "plain_ulp_spread": float((u - a).abs().max()),
                       "plain_max": size, "tol": tol}
         bars.append(tol)
         worst = max(worst, diff)
@@ -1329,8 +1379,10 @@ def wheel_path(dev):
     """Phase 10: the wheel, as ``python -m mpisppy_tpu_torch`` spins it.
     Returns (block launches of the wheel, the block's largest
     difference from its plain version at the Lagrangian engine's
-    shapes, the list of failed checks); prints one JSON line."""
+    shapes, the list of failed checks, the wheel's host batch, the x̂
+    spoke's incumbent first stage or None); prints one JSON line."""
     import math
+    import numpy as np
     import torch
     from mpisppy_tpu_torch import obs
     from mpisppy_tpu_torch.core.ph import _ph_assemble
@@ -1377,7 +1429,7 @@ def wheel_path(dev):
         return None
 
     _, rel_gap = wheel.gap()
-    failures = []
+    failures = stuck_spokes("wheel_path")
     for name in ("hub", "lagrangian"):
         if per_engine[name] <= 0:
             failures.append(f"the {name} engine launched no block")
@@ -1432,11 +1484,16 @@ def wheel_path(dev):
                 "seconds_per_call", {}).get("solve")},
         "launches_per_engine": per_engine, "launches": launches,
         "demotions": len(demotions), "peak_gb": peak_gb}))
+    batch = ph.batch
+    best_xhat = (None if wheel.spokes[1].best_xhat is None
+                 else np.array(wheel.spokes[1].best_xhat, dtype=float))
     del wheel, hub, ph, lag, xhat, factors, data, st, q
+    # phase 13 reuses the host batch; its device copies go now
+    batch.__dict__.pop("_dev_cache", None)
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
-    return launches, err, failures
+    return launches, err, failures, batch, best_xhat
 
 
 class APHLog(IterLog):
@@ -1566,7 +1623,7 @@ def aph_path(dev, batch, chunked):
     trivial = getattr(aph, "trivial_bound", None)
     w_sum = float((aph.prob @ aph.W).abs().max())
     w_scale = max(1.0, float(aph.W.abs().max()))
-    failures = []
+    failures = stuck_spokes("aph_path")
     if iters != APH_ITERS:
         failures.append(f"{iters} APH iterations ran, expected {APH_ITERS}")
     if got != plan[:len(got)] or any(r["launches"] % per_call
@@ -1741,6 +1798,523 @@ def aph_shard_wheel(dev):
     return launches, err, failures
 
 
+
+def _inf_free_columns(eng, x):
+    """Per scenario, the free (unpinned) columns whose term of the
+    Benders cut of ``eng``'s last pinned solve at ``x`` is -inf (a
+    reduced cost of the wrong sign on an infinite bound), and the
+    largest such reduced cost in size."""
+    import torch
+    from mpisppy_tpu_torch.ops import qp_solver as T
+    d0 = eng._data_with_prox(False)
+    idx = eng.nonant_idx
+    pin = torch.as_tensor(x, dtype=eng.dtype).to(eng.device).expand(
+        eng.batch.S, eng.batch.K)
+    d = d0._replace(lb=d0.lb.index_copy(1, idx, pin),
+                    ub=d0.ub.index_copy(1, idx, pin))
+    yA = T._sanitize_row_duals(d.l, d.u, eng.yA)
+    yB = T._sanitize_row_duals(d.lb, d.ub, eng.yB)
+    r = eng.c + T._ATy(d.A, yA) + yB
+    best = T._column_bound(d.P_diag, eng.c, r, yB, d.lb, d.ub, None, 1e-6)
+    free = torch.ones(eng.batch.n, dtype=torch.bool, device=eng.device)
+    free[idx] = False
+    bad = torch.isneginf(best) & free
+    worst = torch.where(bad, r.abs(), 0.0).amax(dim=-1)
+    return {"count": bad.sum(dim=-1).tolist(),
+            "max_abs_reduced_cost": worst.tolist()}
+
+
+def stuck_spokes(label):
+    """A failure for every in-process spoke thread still running after
+    ``label``'s wheel returned (spin_the_wheel gives up joining a spoke
+    after its budget). Such a thread keeps using its engine and the
+    card: it would race the phase's later calls on that engine, and a
+    daemon thread still inside a CUDA call when the interpreter exits
+    aborts the process."""
+    import threading
+    return [f"{label}: {t.name} still running after the wheel returned"
+            for t in threading.enumerate()
+            if t.name.startswith("spoke") and t.is_alive()]
+
+
+def _lshaped_recorder():
+    """LShapedMethod that keeps, per round, the rounded point, the cuts,
+    the pinned solve's per-scenario objectives and its feasibility
+    verdict (the engine's own test), for phase 13's checks."""
+    import numpy as np
+    from mpisppy_tpu_torch.core.lshaped import LShapedMethod
+    from mpisppy_tpu_torch.utils.runtime import to_host
+
+    class Recorder(LShapedMethod):
+        def generate_cuts(self, xf):
+            const, g, ub = super().generate_cuts(xf)
+            if not hasattr(self, "rounds"):
+                self.rounds = []
+            st = self._qp_states[("fixed", False)]
+            x = np.asarray(self.round_nonants(xf))
+            # the rounded point against the master's first-stage rows
+            m1, K = self._m1, self.batch.K
+            ax = self._mA[:m1, :K] @ x
+            viol = np.maximum(self._ml[:m1] - ax, ax - self._mu[:m1])
+            self.rounds.append({
+                "x": x, "const": const,
+                "g": g, "V": to_host(self._last_base_obj, np.float64),
+                "dual": to_host(self._last_dual_obj, np.float64),
+                "inf_columns": _inf_free_columns(self, x),
+                "feasible": self._cut_timing["feasible"],
+                "max_pri_rel": float(st.pri_rel.max()),
+                "finite_cuts": int(np.isfinite(const).sum()),
+                "first_stage_rows_broken": int((viol > 1e-9).sum()),
+                "first_stage_max_violation": float(max(viol.max(), 0.0))})
+            return const, g, ub
+
+    return Recorder
+
+
+def lshaped_config(dev):
+    """Phase 13's RunConfig: what ``python -m mpisppy_tpu_torch uc --hub
+    lshaped --with-xhatlshaped`` builds, on the slice's instance and S,
+    with PH_OPTS' native f64 options on the cuda block, LSHAPED_ITERS
+    L-shaped iterations and the x̂ spoke's dive off."""
+    from mpisppy_tpu_torch.utils.config import (AlgoConfig, RunConfig,
+                                                SpokeConfig)
+    base = dict(PH_OPTS)
+    algo = AlgoConfig(
+        default_rho=base["defaultPHrho"], convthresh=-1.0,
+        subproblem_max_iter=base["subproblem_max_iter"],
+        subproblem_eps=base["subproblem_eps"],
+        subproblem_polish_chunk=base["subproblem_polish_chunk"],
+        subproblem_kernel_mode=base["subproblem_kernel_mode"],
+        subproblem_kernel_backend=base["subproblem_kernel_backend"])
+    # the x̂ spoke evaluates the master's point itself (a pinned solve
+    # through the block): its default candidate source on integer
+    # nonants, the prox-centred dive, runs the reference solver round
+    # after round at this width, and on an H100 it kept the spoke busy
+    # past the end of the script
+    return RunConfig(
+        model="uc", num_scens=SLICE_SCENARIOS,
+        model_kwargs=dict(SLICE_INSTANCE), hub="lshaped", algo=algo,
+        hub_options=dict(base, max_iter=LSHAPED_ITERS),
+        spokes=[SpokeConfig(kind="xhatlshaped",
+                            options=dict(base, xhat_dive_candidates=False))],
+        device=str(dev))
+
+
+def feasible_first_stage(ls, xhat):
+    """A first stage of the slice's UC that every pinned solve can take:
+    the commitments u of phase 10's incumbent (its x̂ spoke pins u only
+    and certified the value on the host) with the startups they imply,
+    st[g, t] = max(0, u[g, t] - u[g, t-1]) from the T0 state. Returns
+    (the point (K,), the largest violation of the L-shaped master's
+    first-stage rows and boxes)."""
+    import numpy as np
+    from mpisppy_tpu_torch.models.uc import t0_fleet_state
+    G, T = SLICE_INSTANCE["num_gens"], SLICE_INSTANCE["num_hours"]
+    u = np.round(np.asarray(xhat, float).reshape(-1)[:G * T]).reshape(G, T)
+    on0 = np.asarray(t0_fleet_state(G)[0], float)
+    prev = np.concatenate([on0[:, None], u[:, :-1]], axis=1)
+    x = np.concatenate([u.reshape(-1),
+                        np.maximum(u - prev, 0.0).reshape(-1)])
+    m1, K = ls._m1, ls.batch.K
+    ax = ls._mA[:m1, :K] @ x
+    viol = np.concatenate([ls._ml[:m1] - ax, ax - ls._mu[:m1],
+                           ls._lb_master[:K] - x, x - ls._ub_master[:K]])
+    return x, max(float(viol.max()), 0.0)
+
+
+def _cut_check(r, label):
+    """The cut-at-point check of one pinned round (JAX
+    tests/test_lshaped.py:56's bar): every scenario's cut at the
+    round's point is at most that solve's objective plus 1e-4 x
+    max(1, |V|). Returns (a summary, the failures)."""
+    import numpy as np
+    cut = r["const"] + r["g"] @ r["x"]
+    bar = r["V"] + 1e-4 * np.maximum(1.0, np.abs(r["V"]))
+    slack = bar - cut
+    fin = np.isfinite(cut)
+    out = {"label": label, "feasible": r["feasible"],
+           "max_pri_rel": r["max_pri_rel"], "finite_cuts": int(fin.sum()),
+           "min_slack": float(slack.min()),
+           "cut_depth_below_V": [float(v) for v in (r["V"] - cut)[fin]],
+           "inf_free_columns": r["inf_columns"],
+           "finite_dual_bounds": int(np.isfinite(r["dual"]).sum()),
+           "dual_gap_rel": [float(v) for v in
+                            (r["V"] - r["dual"]) / np.maximum(1.0,
+                                                              np.abs(r["V"]))]}
+    failures = []
+    if not bool((slack >= 0).all()):
+        failures.append(f"{label}: a cut lies above the value function "
+                        f"at its own point: {slack.tolist()}")
+    # the same duals' certified bound at the point (with the witness;
+    # what PH's bounds use) is a lower bound on that solve's objective
+    if r["feasible"] and not bool((r["dual"] <= bar).all()):
+        failures.append(f"{label}: a certified dual bound lies above the "
+                        f"pinned objective: {(bar - r['dual']).tolist()}")
+    return out, failures
+
+
+def lshaped_path(dev, batch, xhat):
+    """Phase 13: the L-shaped wheel on the slice's host batch (phase
+    10's build), then the cut solve and the x̂-lshaped spoke's pinned
+    evaluation at a first stage known to be feasible (built from phase
+    10's incumbent ``xhat``: feasible_first_stage), twice on the hub
+    (cold, then continued at the same point). Returns (block launches
+    of the path, the block's largest difference from its plain version
+    on the pinned operands, the list of failed checks); prints one
+    JSON line."""
+    import math
+    import numpy as np
+    import torch
+    from mpisppy_tpu_torch import obs
+    from mpisppy_tpu_torch.core.ph import _ph_assemble
+    from mpisppy_tpu_torch.ops.kernels import admm_block
+    from mpisppy_tpu_torch.utils import vanilla
+    from mpisppy_tpu_torch.utils.sputils import spin_the_wheel
+
+    cfg = lshaped_config(dev)
+    cfg.validate()
+    vanilla.refuse_unported(cfg)
+    hub_d = vanilla.hub_dict(cfg, batch=batch)
+    spoke_ds = [vanilla.spoke_dict(cfg, sp, batch=batch)
+                for sp in cfg.spokes]
+    hub_d["opt_class"] = _lshaped_recorder()
+    on_card = torch.device(dev).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    obs.configure()
+    admm_block.LAUNCHES = 0
+    t0 = time.perf_counter()
+    wheel = spin_the_wheel(hub_d, spoke_ds)
+    _sync()
+    t_wheel = time.perf_counter() - t0
+    wheel_launches = admm_block.LAUNCHES
+    ls, xhat_eng = wheel.hub.opt, wheel.spokes[0].opt
+    wheel_per_engine = {"hub": ls.kernel_launches,
+                        "xhatlshaped": xhat_eng.kernel_launches}
+    outer, inner = wheel.best_outer_bound, wheel.best_inner_bound
+    K, Se = ls.batch.K, len(ls._eta_scens)
+    eta_lb = ls._lb_master[K:K + Se]
+    eta_floor = float(np.dot(np.asarray(ls.batch.prob)[ls._eta_scens],
+                             eta_lb))
+    lbs = [r["lb"] for r in ls.lshaped_timing]
+    n_wheel_rounds = len(getattr(ls, "rounds", []))
+    failures = stuck_spokes("lshaped_path")
+    if sum(wheel_per_engine.values()) != wheel_launches:
+        failures.append(f"per-engine launches {wheel_per_engine} do not "
+                        f"add up to the wheel's {wheel_launches}")
+    if not lbs or not all(math.isfinite(v) for v in lbs):
+        failures.append(f"outer bounds not finite: {lbs}")
+    elif any(b < a for a, b in zip(lbs, lbs[1:])):
+        failures.append(f"the outer bound decreased: {lbs}")
+    if not (math.isfinite(outer)
+            and outer >= eta_floor - 1e-7 * max(1.0, abs(eta_floor))):
+        failures.append(f"outer bound {outer} below the eta floor "
+                        f"{eta_floor}")
+    if math.isfinite(inner) and not outer <= inner:
+        failures.append(f"outer bound {outer} above inner bound {inner}")
+    cut_rows, checked, skipped = [], 0, 0
+    for i, r in enumerate(getattr(ls, "rounds", [])):
+        if not r["feasible"]:
+            skipped += 1
+            continue
+        checked += 1
+        row, f = _cut_check(r, f"wheel round {i + 1}")
+        cut_rows.append(row)
+        failures += f
+
+    # the feasible first stage: the hub's cut solve there (cold: the
+    # wheel's last cut solve was at another point), the same point again
+    # (the solve continues from its state), then the spoke's pinned
+    # evaluation of it
+    feas = {"point_from_phase_10": xhat is not None}
+    x_feas = None
+    if xhat is None:
+        failures.append("phase 10 left no incumbent: no feasible first "
+                        "stage for the cut-at-point check")
+    else:
+        x_feas, viol = feasible_first_stage(ls, xhat)
+        feas["first_stage_max_violation"] = viol
+        if viol > 1e-9:
+            failures.append(f"the first stage built from phase 10's "
+                            f"incumbent breaks a first-stage row by {viol}")
+            x_feas = None
+    tol_b = 1e-4 * max(1.0, abs(outer)) if math.isfinite(outer) else 0.0
+    if x_feas is not None:
+        for visit in ("cold", "continued"):
+            t0 = time.perf_counter()
+            _, _, ub = ls.generate_cuts(x_feas)
+            _sync()
+            r = ls.rounds[-1]
+            row, f = _cut_check(r, f"feasible point, {visit}")
+            row.update(seconds=time.perf_counter() - t0, ub=ub,
+                       iters=int(ls._qp_states[("fixed", False)].iters))
+            feas[visit] = row
+            failures += f
+            if not r["feasible"]:
+                failures.append(f"the pinned solve at the feasible first "
+                                f"stage ({visit}) failed the engine's "
+                                f"test: max pri_rel {r['max_pri_rel']:.3e}")
+            if ub is not None and not ub >= outer - tol_b:
+                failures.append(f"the value {ub} at the feasible first "
+                                f"stage ({visit}) is below the outer "
+                                f"bound {outer}")
+        before = xhat_eng.kernel_launches
+        t0 = time.perf_counter()
+        obj = xhat_eng.calculate_incumbent(x_feas)
+        _sync()
+        feas["spoke"] = {"value": obj, "seconds": time.perf_counter() - t0,
+                         "launches": xhat_eng.kernel_launches - before}
+        if obj is None:
+            failures.append("the x̂-lshaped spoke's pinned evaluation of "
+                            "the feasible first stage found it infeasible")
+        elif not obj >= outer - tol_b:
+            failures.append(f"the spoke's value {obj} at the feasible "
+                            f"first stage is below the outer bound {outer}")
+        # the block path's pinned duals run at fixed rho (ROADMAP B6) and
+        # may certify no finite cut at all; the cut builder is checked at
+        # full width on the reference backend's duals (rho adapts) at
+        # the same point, with the same engine code
+        ref = type(ls)(batch, dict(ls.options,
+                                   subproblem_kernel_mode="segmented",
+                                   subproblem_max_iter=REF_CUT_ITERS),
+                       device=dev)
+        t0 = time.perf_counter()
+        _, _, ub_ref = ref.generate_cuts(x_feas)
+        _sync()
+        r_ref = ref.rounds[-1]
+        row, f = _cut_check(r_ref, "feasible point, reference backend")
+        row.update(seconds=time.perf_counter() - t0, ub=ub_ref,
+                   iters=int(ref._qp_states[("fixed", False)].iters))
+        feas["reference"] = row
+        failures += f
+        if not r_ref["feasible"]:
+            failures.append(f"the reference backend's pinned solve at the "
+                            f"feasible first stage failed the engine's "
+                            f"test: max pri_rel {r_ref['max_pri_rel']:.3e}")
+        # at the reference UC every cut may be -inf on both backends
+        # (inf_free_columns says which terms): then only the dual
+        # bounds were held, and the JSON says so
+        feas["cuts_checked"] = sum(feas[k]["finite_cuts"] for k in
+                                   ("cold", "continued", "reference"))
+        # the block path's cuts against the reference's value function
+        V_ref = r_ref["V"]
+        for visit in ("cold", "continued"):
+            blk = ls.rounds[n_wheel_rounds + (visit == "continued")]
+            cut = blk["const"] + blk["g"] @ x_feas
+            slack = V_ref + 1e-4 * np.maximum(1.0, np.abs(V_ref)) - cut
+            feas[visit]["min_slack_vs_reference"] = float(slack.min())
+            if not bool((slack >= 0).all()):
+                failures.append(f"a block-path cut ({visit}) lies above "
+                                f"the reference value function at the "
+                                f"feasible first stage: {slack.tolist()}")
+            if ub_ref is not None and blk["feasible"]:
+                feas[visit]["ub_rel_to_reference"] = \
+                    (feas[visit]["ub"] - ub_ref) / abs(ub_ref)
+        del ref
+    launches = admm_block.LAUNCHES
+    demotions = obs.events("kernel.cuda_demotion")
+    obs.shutdown()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    plans = {str(k): {"backend": p.backend, "launches": p.launches}
+             for k, p in ls._kernel_plans.items()}
+    spoke_plans = {str(k): {"backend": p.backend, "launches": p.launches}
+                   for k, p in xhat_eng._kernel_plans.items()}
+    per_engine = {"hub": ls.kernel_launches,
+                  "xhatlshaped": xhat_eng.kernel_launches}
+    for key in ("False", "('fixed', False)"):
+        plan = plans.get(key)
+        if plan is None or plan["backend"] != "cuda" \
+                or plan["launches"] <= 0:
+            failures.append(f"the hub's {key} plan launched no block: "
+                            f"{plan}")
+    plan = spoke_plans.get("('fixed', False)")
+    if plan is None or plan["backend"] != "cuda" or plan["launches"] <= 0:
+        failures.append(f"the x̂-lshaped spoke's pinned plan launched no "
+                        f"block: {plan}")
+    if sum(per_engine.values()) != launches:
+        failures.append(f"per-engine launches {per_engine} do not add up "
+                        f"to the block's {launches}")
+    if demotions:
+        failures.append(f"kernel demotion booked: {demotions}")
+
+    # the block at full width on the pinned operands as the path hands
+    # them to it. Cold: every cut solve at a new point drops the
+    # engine's ("fixed", False) state and rebuilds it (a fresh pinned
+    # factor, the prox-off iterates transplanted); here at the wheel's
+    # last point. Warm: the state a feasible pinned solve leaves, which
+    # a cut solve at the same point continues from, as the spoke's
+    # evaluations do; here at the feasible first stage
+    def pinned_operands(x_pin):
+        factors, data = ls._get_factors(False, fixed=True)
+        ls.fix_nonants(x_pin)
+        q, bl, bu = _ph_assemble(data, ls.c, ls.W, ls.xbar, ls.rho,
+                                 ls.nonant_idx, ls._fixed_mask,
+                                 ls._fixed_vals, None, w_on=False,
+                                 prox_on=False)
+        ls.unfix_nonants()
+        return factors, data._replace(lb=bl, ub=bu), q
+
+    err = 0.0
+    if x_feas is not None:
+        st = ls._qp_states[("fixed", False)]
+        factors, d, q = pinned_operands(x_feas)
+        e, f = compare(factors, d, q, st, 20, "lshaped_pinned_warm")
+        err, failures = max(err, e), failures + f
+    ls._qp_states.pop(("fixed", False), None)
+    st = ls._ensure_state(False, fixed=True)
+    factors, d, q = pinned_operands(ls.rounds[n_wheel_rounds - 1]["x"])
+    e, f = compare(factors, d, q, st, 20, "lshaped_pinned_cold")
+    err, failures = max(err, e), failures + f
+    admm_block.LAUNCHES = launches   # the comparisons' are not the path's
+    log(json.dumps({
+        "phase": "lshaped_path", "S": ls.batch.S, "n": ls.batch.n,
+        "m": ls.batch.m, "K": K, "master_rows": int(ls._mA.shape[0]),
+        "master_cols": int(ls._mA.shape[1]), "first_stage_rows": ls._m1,
+        "wheel_s": t_wheel,
+        "iterations": ls.lshaped_timing, "eta_floor": eta_floor,
+        "best_outer": outer, "best_inner": inner,
+        "cut_checks": cut_rows, "wheel_rounds_checked": checked,
+        "wheel_rounds_infeasible": skipped,
+        "rounds": [{k: r[k] for k in (
+            "max_pri_rel", "finite_cuts", "first_stage_rows_broken",
+            "first_stage_max_violation")}
+            for r in getattr(ls, "rounds", [])[:n_wheel_rounds]],
+        "feasible_point": feas, "plans": plans, "spoke_plans": spoke_plans,
+        "wheel_launches_per_engine": wheel_per_engine,
+        "launches_per_engine": per_engine, "wheel_launches": wheel_launches,
+        "launches": launches, "demotions": len(demotions),
+        "peak_gb": peak_gb}))
+    del wheel, ls, xhat_eng, factors, d, st, q
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return launches, err, failures
+
+
+def ef_linprog(batch):
+    """The host HiGHS LP of ``batch``'s extensive form, built as
+    tests/test_models.py's ef_linprog builds it: S copies of the
+    scenario rows and boxes, the nonant columns tied to scenario 0 by
+    equality rows, the probability-weighted cost (the blocks in sparse
+    form). Returns (objective, seconds)."""
+    import numpy as np
+    from scipy import sparse
+    from scipy.optimize import linprog
+
+    t0 = time.perf_counter()
+    S, n, K = batch.S, batch.n, batch.K
+    idx = np.asarray(batch.nonant_idx)
+    N = S * n
+    cost = (batch.prob[:, None] * batch.c).reshape(-1)
+
+    def place(block, s):
+        block = sparse.csr_matrix(block)
+        return sparse.hstack([sparse.csr_matrix((block.shape[0], s * n)),
+                              block,
+                              sparse.csr_matrix((block.shape[0],
+                                                 N - (s + 1) * n))])
+
+    ub_blocks, b_ub, eq_blocks, b_eq = [], [], [], []
+    for s in range(S):
+        A, l, u = np.asarray(batch.A_of(s)), batch.l[s], batch.u[s]
+        eq = np.isfinite(l) & np.isfinite(u) & (l == u)
+        ub_rows = np.isfinite(u) & ~eq
+        lb_rows = np.isfinite(l) & ~eq
+        for rows, sign, rhs in ((ub_rows, 1.0, u), (lb_rows, -1.0, -l)):
+            if rows.any():
+                ub_blocks.append(place(sign * A[rows], s))
+                b_ub.append(rhs[rows])
+        if eq.any():
+            eq_blocks.append(place(A[eq], s))
+            b_eq.append(l[eq])
+        if s > 0:   # nonanticipativity: x_s[k] == x_0[k]
+            kk = np.arange(K)
+            eq_blocks.append(sparse.csr_matrix(
+                (np.concatenate([np.ones(K), -np.ones(K)]),
+                 (np.concatenate([kk, kk]),
+                  np.concatenate([s * n + idx, idx]))), shape=(K, N)))
+            b_eq.append(np.zeros(K))
+    lb = np.asarray(batch.lb).reshape(-1)
+    ub = np.asarray(batch.ub).reshape(-1)
+    bounds = [(lo if np.isfinite(lo) else None,
+               hi if np.isfinite(hi) else None) for lo, hi in zip(lb, ub)]
+    res = linprog(cost,
+                  A_ub=sparse.vstack(ub_blocks).tocsr() if ub_blocks
+                  else None,
+                  b_ub=np.concatenate(b_ub) if b_ub else None,
+                  A_eq=sparse.vstack(eq_blocks).tocsr() if eq_blocks
+                  else None,
+                  b_eq=np.concatenate(b_eq) if b_eq else None,
+                  bounds=bounds, method="highs")
+    if res.status != 0:
+        raise RuntimeError(f"host EF LP failed: {res.message}")
+    return (float(res.fun + float(batch.prob @ batch.c0)),
+            time.perf_counter() - t0)
+
+
+def ef_path(dev):
+    """Phase 14: ``python -m mpisppy_tpu_torch uc --EF`` on the reference
+    instance at EF_SCENARIOS (every width kept) and ``farmer --EF``,
+    through vanilla.build_batch_for and ExtensiveForm on the card, each
+    held against its reference value. Returns the list of failed
+    checks; prints one JSON line."""
+    import numpy as np
+    import torch
+    from mpisppy_tpu_torch.core.ef import ExtensiveForm
+    from mpisppy_tpu_torch.utils.config import RunConfig
+    from mpisppy_tpu_torch.utils.vanilla import build_batch_for
+
+    on_card = torch.device(dev).type == "cuda"
+    failures, rows = [], {}
+    for name, cfg, budget in (
+            ("farmer", RunConfig(model="farmer", num_scens=3,
+                                 solve_ef=True, device=str(dev)), 40000),
+            ("uc", RunConfig(model="uc", num_scens=EF_SCENARIOS,
+                             model_kwargs=dict(SLICE_INSTANCE),
+                             solve_ef=True, device=str(dev)), EF_BUDGET)):
+        cfg.validate()
+        batch = build_batch_for(cfg)
+        if name == "farmer":
+            want, t_ref, rel, abs_ = -108390.0, 0.0, 1e-4, 0.0
+        else:
+            want, t_ref = ef_linprog(batch)
+            rel, abs_ = 2e-3, 2e-2
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ef = ExtensiveForm(batch, device=cfg.device)
+        _sync()
+        t_build = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got, xb = ef.solve_extensive_form(max_iter=budget)
+        _sync()
+        t_solve = time.perf_counter() - t0
+        st = ef.solver_state
+        tol = max(rel * abs(want), abs_)
+        rows[name] = {
+            "S": batch.S, "n_ef": ef.n_ef,
+            "m_ef": int(ef.ef_data.A.shape[-2]),
+            "ef_objective": got, "reference": want,
+            "reference_s": t_ref, "abs_diff": abs(got - want), "tol": tol,
+            "build_s": t_build, "solve_s": t_solve, "iterations": st.iters,
+            "budget": budget, "pri_rel": float(st.pri_rel.max()),
+            "dua_rel": float(st.dua_rel.max()),
+            "peak_gb": (torch.cuda.max_memory_allocated() / 1e9
+                        if on_card else None)}
+        if not (np.isfinite(got) and np.isfinite(xb).all()
+                and xb.shape == (batch.S, batch.n)):
+            failures.append(f"{name} EF: non-finite or misshapen result")
+        if not abs(got - want) <= tol:
+            failures.append(f"{name} EF objective {got} is {abs(got - want)}"
+                            f" from the reference {want} (band {tol})")
+        del ef, st, xb, batch
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    log(json.dumps({"phase": "ef_path", **rows}))
+    return failures
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1795,7 +2369,8 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     mixed_check(dev)
-    wheel_launches, wheel_err, failures = wheel_path(dev)
+    wheel_launches, wheel_err, failures, slice_batch, wheel_xhat = \
+        wheel_path(dev)
     if failures:
         raise RuntimeError("wheel path failed: " + "; ".join(failures))
     aph_launches, aph_err, failures = aph_path(dev, batch, native)
@@ -1807,11 +2382,21 @@ def main():
     shard_launches, shard_err, failures = aph_shard_wheel(dev)
     if failures:
         raise RuntimeError("aph shard wheel failed: " + "; ".join(failures))
+    ls_launches, ls_err, failures = lshaped_path(dev, slice_batch,
+                                                 wheel_xhat)
+    if failures:
+        raise RuntimeError("lshaped path failed: " + "; ".join(failures))
+    del slice_batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    failures = ef_path(dev)
+    if failures:
+        raise RuntimeError("ef path failed: " + "; ".join(failures))
     launches += chunk_launches + wheel_launches + aph_launches \
-        + shard_launches
+        + shard_launches + ls_launches
     # the largest difference at any shape of the path
     timing["max_abs_err"] = max(timing["max_abs_err"], chunk_err,
-                                wheel_err, aph_err, shard_err)
+                                wheel_err, aph_err, shard_err, ls_err)
     entry = {"name": "admm_block", "route": "cuda",
              "source": "mpisppy_tpu_torch/ops/kernels/csrc/admm_block.cu",
              "replaces": "mpisppy_tpu/ops/kernels/pallas_kernel.py:100",

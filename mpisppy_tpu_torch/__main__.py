@@ -4,18 +4,23 @@
 The baseparsers + driver-script analog (ref. mpisppy/utils/baseparsers.py
 :11-451 and examples/*_cylinders.py): one entry point that builds the
 validated RunConfig, wires the hub and the requested spokes through
-utils.vanilla, and spins the wheel. Flag names mirror the JAX package's;
+utils.vanilla, and spins the wheel, or with ``--EF`` solves the
+extensive form (core/ef.py; ``--EF-integer`` as a MIP) and prints
+``{"ef_objective": ...}``. Flag names mirror the JAX package's;
 ``--device`` picks the engines' device (default: the CUDA device; the
 run raises without one unless ``--device cpu`` is given). What the port
-does not run yet refuses, naming its ROADMAP.md item: ``--EF``, the
-``serve`` and ``analyze`` subcommands, non-resident scenario sources,
-and models other than farmer and uc.
+does not run yet refuses, naming its ROADMAP.md item: the FWPH and
+cross-scenario spokes, bundling, the ``serve`` and ``analyze``
+subcommands and non-resident scenario sources.
 
 Examples:
   python -m mpisppy_tpu_torch farmer --num-scens 3 --default-rho 1 \\
       --max-iterations 50 --with-lagrangian --with-xhatshuffle --device cpu
   python -m mpisppy_tpu_torch uc --num-scens 10 --default-rho 100 \\
       --with-lagrangian --with-xhatshuffle --rel-gap 0.001
+  python -m mpisppy_tpu_torch farmer --hub lshaped --with-xhatlshaped \\
+      --device cpu
+  python -m mpisppy_tpu_torch sizes --EF --EF-integer --device cpu
 """
 
 from __future__ import annotations
@@ -275,11 +280,23 @@ def run(cfg: RunConfig):
     # a telemetry session only when one is asked for (the port's
     # telemetry is in memory; file artifacts refuse, ROADMAP.md A13)
     obs.maybe_configure_from_env()
-    hub_d, spoke_ds = wheel_dicts(cfg)
-    wheel = spin_the_wheel(hub_d, spoke_ds)
-    # never-established bounds report as null, not JSON-invalid Infinity
-    result = {"outer_bound": obs.finite_or_none(wheel.hub.BestOuterBound),
-              "inner_bound": obs.finite_or_none(wheel.best_inner_bound)}
+    if cfg.solve_ef:
+        from . import global_toc
+        from .core.ef import ExtensiveForm
+        from .utils.vanilla import build_batch_for
+
+        ef = ExtensiveForm(build_batch_for(cfg), device=cfg.device)
+        obj, _ = ef.solve_extensive_form(integer=cfg.ef_integer)
+        global_toc(f"EF objective: {obj:.4f}")
+        result = {"ef_objective": obj}
+    else:
+        hub_d, spoke_ds = wheel_dicts(cfg)
+        wheel = spin_the_wheel(hub_d, spoke_ds)
+        # never-established bounds report as null, not JSON-invalid
+        # Infinity
+        result = {
+            "outer_bound": obs.finite_or_none(wheel.hub.BestOuterBound),
+            "inner_bound": obs.finite_or_none(wheel.best_inner_bound)}
     obs.event("run.result", result)
     return result
 

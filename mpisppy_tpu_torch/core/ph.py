@@ -440,14 +440,23 @@ class PHBase(SPBase):
         d = self.qp_data
         idx = self.nonant_idx
         if d.P_diag.ndim == 1:
-            # the shared single-factor form needs rho uniform across
-            # scenarios (rho setters are per slot, so it is)
-            if not bool((self.rho == self.rho[:1]).all()):
-                raise NotImplementedError(
-                    "per-scenario rho on a shared-structure batch is not "
-                    "ported (it needs the batched (S, m, n) form)")
-            return d._replace(P_diag=d.P_diag.index_add(0, idx,
-                                                        self.rho[0]))
+            # shared-structure batch: the prox diagonal stays shared for
+            # the single-factor form whenever rho is uniform across
+            # scenarios (the default; rho setters are per slot)
+            if bool((self.rho == self.rho[:1]).all()):
+                return d._replace(P_diag=d.P_diag.index_add(0, idx,
+                                                            self.rho[0]))
+            # per-scenario rho: the batched (S, m, n) representation
+            # (outside the ADMM block's scope, which needs a 2-D A)
+            if isinstance(d.A, (SplitMatrix, ScaledView)):
+                raise ValueError(
+                    "per-scenario rho needs the batched (S, m, n) "
+                    "representation, which the df32 SplitMatrix cannot "
+                    "broadcast to — use a uniform rho with "
+                    "subproblem_precision='df32'")
+            S = self.batch.S
+            P = d.P_diag.expand(S, -1).index_add(1, idx, self.rho)
+            return d._replace(P_diag=P, A=d.A.expand((S,) + d.A.shape))
         return d._replace(P_diag=d.P_diag.index_add(1, idx, self.rho))
 
     def _get_factors(self, prox_on: bool, fixed: bool = False,

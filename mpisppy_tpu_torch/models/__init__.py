@@ -1,6 +1,6 @@
-"""Model families of the port: UC (the slice's configuration) and
-farmer (the canonical sanity check). Each module provides
-``scenario_creator(name, **kwargs) -> Model`` and
-``make_tree(num_scens) -> ScenarioTree``."""
+"""Model families of the port, copies of the JAX package's (the
+reference's examples corpus, ref. SURVEY §2.6). Each module provides
+``scenario_creator(name, **kwargs) -> Model``, ``make_tree(...) ->
+ScenarioTree`` and ``scenario_denouement``."""
 
-from . import farmer, uc  # noqa: F401
+from . import farmer, hydro, uc, sizes, sslp, netdes, battery, ccopf  # noqa: F401

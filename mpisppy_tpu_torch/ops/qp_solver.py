@@ -32,6 +32,8 @@ solves with the f32 factor under split-f32 iterative refinement
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from typing import NamedTuple
 
@@ -832,6 +834,29 @@ def _penalty_kkt(A, rpA, P, g, rpB, sigma):
     return Mp
 
 
+# whether the dual-candidate selection may lean on the primal witness
+# (see cut_dual_selection)
+_SELECT_WITH_WITNESS = contextvars.ContextVar("select_with_witness",
+                                              default=True)
+
+
+@contextlib.contextmanager
+def cut_dual_selection():
+    """Within this context (per thread), the polish keeps the dual
+    candidate with the best certified objective WITHOUT the witness
+    fallback: the deepest Benders cut at the solve's pinned point. The
+    default selection lets the witness rescue a candidate whose free
+    column keeps a surviving reduced cost on an infinite bound, which
+    certifies a bound at this solve but gives a -inf cut, since a cut
+    must hold at every point (benders_cut). The L-shaped cut solves run
+    in this context."""
+    token = _SELECT_WITH_WITNESS.set(False)
+    try:
+        yield
+    finally:
+        _SELECT_WITH_WITNESS.reset(token)
+
+
 def _polish_select(A_s, P_s, g, D, E, Eb, csx, sigma, data, q, q_s,
                    l_s, u_s, lb_s, ub_s, x, yA, yB, zA, zB,
                    pri, dua, pri_sc, dua_sc, polish_iters,
@@ -974,11 +999,12 @@ def _polish_select(A_s, P_s, g, D, E, Eb, csx, sigma, data, q, q_s,
     yA_un, yB_un = unscale_y(yA, yB)
     # keep the dual pair with the best certified dual objective; NaN
     # candidates never poison best_val
-    best_val = qp_dual_objective(data, q, 0.0, yA_un, yB_un, x_witness=x_un)
+    x_wit = x_un if _SELECT_WITH_WITNESS.get() else None
+    best_val = qp_dual_objective(data, q, 0.0, yA_un, yB_un, x_witness=x_wit)
     best_val = torch.where(torch.isnan(best_val), -math.inf, best_val)
     for yA_c, yB_c in (cand1, cand2, cand3):
         yA_cu, yB_cu = unscale_y(yA_c, yB_c)
-        val = qp_dual_objective(data, q, 0.0, yA_cu, yB_cu, x_witness=x_un)
+        val = qp_dual_objective(data, q, 0.0, yA_cu, yB_cu, x_witness=x_wit)
         better = val > best_val
         yA_un = torch.where(better.unsqueeze(-1), yA_cu, yA_un)
         yB_un = torch.where(better.unsqueeze(-1), yB_cu, yB_un)
@@ -1217,3 +1243,34 @@ def qp_dual_objective(data: QPData, q, c0, yA, yB, x_witness=None,
                          x_witness, r_rel_tol)
     sup_c = _sup_rows(data.l, data.u, yA)
     return torch.sum(best, dim=-1) - sup_c + c0
+
+
+def benders_cut(data: QPData, q, c0, yA, yB, param_mask, b0,
+                r_rel_tol=1e-6):
+    """Affine minorant of the value function V(b) = min ½x'Px + q'x + c0
+    s.t. l <= Ax <= u and the boxes, with the columns in ``param_mask``
+    fixed at b (their boxes carry lb = ub = b in ``data``): the
+    L-shaped optimality cut, from (possibly inexact) ADMM duals.
+
+    Returns (const (S,), g (S, n) zero outside ``param_mask``) with
+    V(b) >= const + g·b for every b, up to the r_rel_tol
+    residual-zeroing convention. Dropping the bound dual on the
+    parameter columns leaves the dual function affine in b there, with
+    the quadratic linearised at ``b0`` (a convex function's tangent is
+    a global minorant); the free columns contribute the per-coordinate
+    terms of qp_dual_objective without the witness fallback (its box is
+    tied to the solve at b0, and a cut must hold at every b: a -inf
+    free column gives an inactive -inf cut)."""
+    pm = param_mask
+    P = data.P_diag
+    yA = _sanitize_row_duals(data.l, data.u, yA)
+    yB = _sanitize_row_duals(data.lb, data.ub, yB)
+    r = q + _ATy(data.A, yA) + yB
+    r_c = r - yB     # the residual without the bound dual
+    g = torch.where(pm, r_c + P * b0, 0.0)
+    const_param = torch.sum(torch.where(pm, -0.5 * P * b0 * b0, 0.0),
+                            dim=-1)
+    best = _column_bound(P, q, r, yB, data.lb, data.ub, None, r_rel_tol)
+    const_free = torch.sum(torch.where(pm, 0.0, best), dim=-1)
+    sup_c = _sup_rows(data.l, data.u, yA)
+    return const_param + const_free - sup_c + c0, g

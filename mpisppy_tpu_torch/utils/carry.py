@@ -9,7 +9,8 @@ key is present:
                  invalidates the prox-on factors, as a rho setter does;
   solver state   ``qp_state``: {``x``, ``yA``, ``yB``, ``zA``, ``zB``,
                  ``F`` (the solve operator), ``rho_scale``} for the
-                 mode ``prox_on`` (default True);
+                 mode ``prox_on`` (default True), or for the pinned
+                 mode ``("fixed", prox_on)`` with ``fixed=True``;
   chunk states   ``chunks``: a list of such dicts, one per chunk of the
                  engine's ``subproblem_chunk`` layout, each optionally
                  with ``pri_res``/``dua_res``/``pri_rel``/``dua_rel``
@@ -18,7 +19,10 @@ key is present:
                  the concatenated view as its solver state;
   blacklists     ``chunk_no_retry`` (chunk numbers),
                  ``hospital_no_retry`` (scenario ids) and
-                 ``blacklist_calls`` (solves of the mode so far).
+                 ``blacklist_calls`` (solves of the mode so far);
+  cut buffer     ``master``: L-shaped's master buffer {``mA``, ``ml``,
+                 ``mu``, ``slots_filled``, ``lb_master``}
+                 (core/lshaped), host numpy as the engine keeps it.
 """
 
 from __future__ import annotations
@@ -35,11 +39,12 @@ def _t(a, engine, device):
     return torch.tensor(np.asarray(a), dtype=engine.dtype, device=device)
 
 
-def from_numpy_state(engine, arrays: dict, device=None, prox_on=True):
+def from_numpy_state(engine, arrays: dict, device=None, prox_on=True,
+                     fixed=False):
     """Install ``arrays`` (numpy) into ``engine`` on ``device`` (the
     engine's device when None). Returns the engine."""
     dev = engine.device if device is None else torch.device(device)
-    key = bool(prox_on)
+    key = ("fixed", bool(prox_on)) if fixed else bool(prox_on)
     d = engine.qp_data
     vec = {k: _t(arrays[k], engine, dev)
            for k in ("l", "u", "lb", "ub") if k in arrays}
@@ -57,7 +62,7 @@ def from_numpy_state(engine, arrays: dict, device=None, prox_on=True):
         engine.invalidate_factors()
     if "qp_state" in arrays:
         src = arrays["qp_state"]
-        st = engine._ensure_state(prox_on)
+        st = engine._ensure_state(prox_on, fixed)
         st = st._replace(
             **{k: _t(src[k], engine, dev)
                for k in ("x", "yA", "yB", "zA", "zB", "rho_scale")},
@@ -89,4 +94,10 @@ def from_numpy_state(engine, arrays: dict, device=None, prox_on=True):
             getattr(engine, attr)[key] = {int(v) for v in arrays[name]}
     if "blacklist_calls" in arrays:
         engine._blacklist_calls[key] = int(arrays["blacklist_calls"])
+    if "master" in arrays:
+        src = arrays["master"]
+        for k in ("mA", "ml", "mu", "lb_master"):
+            setattr(engine, f"_{k}", np.array(src[k], dtype=np.float64))
+        engine._slots_filled = np.array(src["slots_filled"],
+                                        dtype=np.int64)
     return engine

@@ -6,8 +6,7 @@ validated RunConfig into the hub/spoke dict schema spin_the_wheel
 consumes, one factory per cylinder kind. Every cylinder gets its OWN
 engine over one shared host batch, on the run's ``device`` (None = the
 CUDA device). What the port does not run yet raises, naming its
-ROADMAP.md item: the L-shaped hub, the spoke kinds whose engines are
-not ported, models other than farmer and uc, bundling, scenario
+ROADMAP.md item: the FWPH and cross-scenario spokes, bundling, scenario
 streaming, the scenario-axis mesh, checkpoints and the live plane.
 """
 
@@ -21,13 +20,8 @@ from .config import RunConfig, SpokeConfig
 _DTYPES = {"float32": torch.float32, "f32": torch.float32,
            "float64": torch.float64, "f64": torch.float64}
 
-# the models the port carries (the JAX package's others wait for the
-# rest of ROADMAP.md A5b)
-PORTED_MODELS = ("farmer", "uc")
-# hub and spoke kinds whose engines are not ported, with their items
-_UNPORTED_HUBS = {"lshaped": "A11"}
-_UNPORTED_SPOKES = {"efmip": "A11", "fwph": "A11", "xhatlshaped": "A11",
-                    "cross_scenario": "A11"}
+# spoke kinds whose engines are not ported, with their items
+_UNPORTED_SPOKES = {"fwph": "A11b", "cross_scenario": "A11b"}
 
 
 def _not_ported(what, item):
@@ -37,18 +31,12 @@ def _not_ported(what, item):
 
 def refuse_unported(cfg: RunConfig):
     """Raise for every part of ``cfg`` the port does not run yet."""
-    if cfg.model not in PORTED_MODELS:
-        raise _not_ported(f"model {cfg.model!r}", "A5b")
-    if cfg.hub in _UNPORTED_HUBS:
-        raise _not_ported(f"the {cfg.hub!r} hub", _UNPORTED_HUBS[cfg.hub])
     for sp in cfg.spokes:
         if sp.kind in _UNPORTED_SPOKES:
             raise _not_ported(f"the {sp.kind!r} spoke",
                               _UNPORTED_SPOKES[sp.kind])
-    if cfg.solve_ef:
-        raise _not_ported("the extensive form (--EF)", "A11")
     if cfg.num_bundles:
-        raise _not_ported("scenario bundling", "A11")
+        raise _not_ported("scenario bundling", "A11b")
     if cfg.algo.scenario_source != "resident":
         raise _not_ported(f"scenario_source={cfg.algo.scenario_source!r}",
                           "A12")
@@ -80,11 +68,25 @@ def build_batch_for(cfg: RunConfig):
     from ..ir.batch import build_batch
     from .. import models
 
-    if cfg.model not in PORTED_MODELS:
-        raise _not_ported(f"model {cfg.model!r}", "A5b")
     mod = getattr(models, cfg.model)
-    batch = build_batch(mod.scenario_creator, mod.make_tree(cfg.num_scens),
-                        creator_kwargs=dict(cfg.model_kwargs),
+    kwargs = dict(cfg.model_kwargs)
+    if cfg.model in ("hydro", "ccopf"):
+        # the creator decodes scenario numbers with the SAME branching
+        # the tree was built with: merge the branching given under
+        # tree_kwargs or directly in model_kwargs into one source
+        tk = dict(kwargs.pop("tree_kwargs", {}))
+        bkey = "branching" if cfg.model == "ccopf" else "branching_factors"
+        if bkey in kwargs:
+            if bkey in tk and tuple(tk[bkey]) != tuple(kwargs[bkey]):
+                raise ValueError(
+                    f"{cfg.model}: {bkey} given in both model_kwargs and "
+                    "tree_kwargs with different values")
+            tk.setdefault(bkey, kwargs[bkey])
+        tree = mod.make_tree(**tk)
+        kwargs.update(tk)
+    else:
+        tree = mod.make_tree(cfg.num_scens)
+    batch = build_batch(mod.scenario_creator, tree, creator_kwargs=kwargs,
                         vector_patch=getattr(mod, "scenario_vector_patch",
                                              None))
     obs.event("batch.build", {"model": cfg.model, "S": batch.S,
@@ -94,12 +96,13 @@ def build_batch_for(cfg: RunConfig):
 
 
 def hub_dict(cfg: RunConfig, batch=None):
-    """ref. vanilla.py:54 ph_hub / aph_hub. ``batch``: optionally a
-    prebuilt batch shared across cylinders (engines never mutate the
-    host arrays; wheel_dicts passes one build to all)."""
+    """ref. vanilla.py:54 ph_hub / aph_hub / lshaped_hub. ``batch``:
+    optionally a prebuilt batch shared across cylinders (engines never
+    mutate the host arrays; wheel_dicts passes one build to all)."""
     from ..core.aph import APH
+    from ..core.lshaped import LShapedMethod
     from ..core.ph import PH
-    from ..cylinders.hub import APHHub, PHHub
+    from ..cylinders.hub import APHHub, LShapedHub, PHHub
 
     refuse_unported(cfg)
     options = cfg.algo.to_options()
@@ -118,7 +121,8 @@ def hub_dict(cfg: RunConfig, batch=None):
     opt_kwargs = {"batch": batch if batch is not None
                   else build_batch_for(cfg),
                   "options": options, "device": cfg.device, **dtype_kw}
-    opt_cls, hub_cls = (APH, APHHub) if cfg.hub == "aph" else (PH, PHHub)
+    opt_cls, hub_cls = {"ph": (PH, PHHub), "aph": (APH, APHHub),
+                        "lshaped": (LShapedMethod, LShapedHub)}[cfg.hub]
     return {"hub_class": hub_cls, "hub_kwargs": hub_kwargs,
             "opt_class": opt_cls, "opt_kwargs": opt_kwargs}
 
@@ -132,17 +136,21 @@ def spoke_classes(kind: str):
                                                 LagrangerOuterBound)
     from ..cylinders.xhat_bounders import (DiveInnerBound,
                                            XhatLooperInnerBound,
+                                           XhatLShapedInnerBound,
                                            XhatShuffleInnerBound,
                                            XhatSpecificInnerBound)
     from ..cylinders.slam_heuristic import (SlamUpHeuristic,
                                             SlamDownHeuristic)
+    from ..cylinders.ef_bounder import EFMipBound
 
     return {
         "lagrangian": (LagrangianOuterBound, PHBase),
+        "efmip": (EFMipBound, PHBase),
         "lagranger": (LagrangerOuterBound, PHBase),
         "xhatshuffle": (XhatShuffleInnerBound, PHBase),
         "xhatlooper": (XhatLooperInnerBound, PHBase),
         "xhatspecific": (XhatSpecificInnerBound, PHBase),
+        "xhatlshaped": (XhatLShapedInnerBound, PHBase),
         "slamup": (SlamUpHeuristic, PHBase),
         "slamdown": (SlamDownHeuristic, PHBase),
         # device-side batched incumbent search

@@ -447,6 +447,76 @@ def test_block_on_gathered_padded_rows_matches_plain(cuda):
     _against_plain_two_orders(f, d._replace(lb=bl, ub=bu), q, st, False)
 
 
+@pytest.mark.cuda
+def test_block_on_pinned_lshaped_operands_matches_plain(cuda):
+    """The block on an L-shaped cut solve's operands: the eq-boosted
+    pinned factors (the fixed=True plan), every nonant box pinned at
+    the rounded master point, the pinned state rebuilt cold from the
+    prox-off iterates as every cut solve rebuilds it; the engine's eta
+    bounds and its cut solve launched the block on both plans."""
+    from mpisppy_tpu_torch.core.lshaped import LShapedMethod
+    from mpisppy_tpu_torch.core.ph import _ph_assemble
+    from mpisppy_tpu_torch.ir.batch import build_batch
+    from mpisppy_tpu_torch.models import uc
+
+    batch = build_batch(uc.scenario_creator, uc.make_tree(3),
+                        creator_kwargs={"num_gens": 3, "num_hours": 6},
+                        vector_patch=uc.scenario_vector_patch)
+    ls = LShapedMethod(batch, {"defaultPHrho": 100.0,
+                               "subproblem_kernel_mode": "fused",
+                               "subproblem_kernel_backend": "cuda",
+                               "subproblem_max_iter": 400,
+                               "subproblem_polish_chunk": 2},
+                       device=cuda)
+    ls.set_eta_bounds()
+    xf, _, _ = ls.solve_master()
+    ls.generate_cuts(xf)
+    for key in (False, ("fixed", False)):
+        plan = ls._kernel_plans[key]
+        assert plan.backend == "cuda" and plan.launches > 0, key
+    ls._qp_states.pop(("fixed", False), None)
+    st = ls._ensure_state(False, fixed=True)
+    f, data = ls._get_factors(False, fixed=True)
+    ls.fix_nonants(ls.round_nonants(xf))
+    q, bl, bu = _ph_assemble(data, ls.c, ls.W, ls.xbar, ls.rho,
+                             ls.nonant_idx, ls._fixed_mask, ls._fixed_vals,
+                             None, w_on=False, prox_on=False)
+    ls.unfix_nonants()
+    assert bool((bl[:, ls.nonant_idx] == bu[:, ls.nonant_idx]).all())
+    _against_plain_two_orders(f, data._replace(lb=bl, ub=bu), q, st, False)
+
+
+@pytest.mark.cuda
+def test_certified_cuts_hold_on_the_card(cuda):
+    """The L-shaped cut builder on the card, on duals that certify
+    finite cuts: a small UC's cut solve on the reference backend (rho
+    adapts) at the first master point, which the pinned solve finds
+    feasible. Every scenario's cut is finite, holds at the point
+    (tests/test_lshaped.py's bar) and lies within 1e-3 relative of the
+    pinned objective there (a tight cut)."""
+    from mpisppy_tpu_torch.core.lshaped import LShapedMethod
+    from mpisppy_tpu_torch.ir.batch import build_batch
+    from mpisppy_tpu_torch.models import uc
+
+    batch = build_batch(uc.scenario_creator, uc.make_tree(3),
+                        creator_kwargs={"num_gens": 3, "num_hours": 6},
+                        vector_patch=uc.scenario_vector_patch)
+    ls = LShapedMethod(batch, {"defaultPHrho": 100.0,
+                               "subproblem_kernel_mode": "segmented"},
+                       device=cuda)
+    ls.set_eta_bounds()
+    xf, _, _ = ls.solve_master()
+    const, g, ub = ls.generate_cuts(xf)
+    assert ls._cut_timing["feasible"] and ub is not None
+    x = ls.round_nonants(xf)
+    V = ls._last_base_obj.cpu().numpy()
+    cut = const + g @ x
+    assert np.all(np.isfinite(cut))
+    scale = np.maximum(1.0, np.abs(V))
+    assert np.all(cut <= V + 1e-4 * scale)
+    assert np.all(V - cut <= 1e-3 * scale)
+
+
 def _child_window_from_the_card(name, length):
     """A spawned process with its own CUDA context: computes on the card
     and publishes the result through the shared window."""

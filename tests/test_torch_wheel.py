@@ -34,6 +34,7 @@ from mpisppy_tpu_torch.utils.config import (KNOWN_SPOKES, AlgoConfig,
 from mpisppy_tpu_torch.utils.sputils import spin_the_wheel
 from mpisppy_tpu_torch.utils.synchronizer import Synchronizer
 from mpisppy_tpu_torch.utils.vanilla import hub_dict, spoke_dict, wheel_dicts
+from torch_threads import one_torch_thread  # noqa: F401
 
 EF_OBJ = -108390.0
 _UC_KW = {"num_gens": 3, "num_hours": 6}
@@ -199,14 +200,9 @@ def test_cli_aph_hub(capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["farmer", "--hub", "lshaped"], "A11"),
-    (["farmer", "--with-efmip"], "A11"),
-    (["farmer", "--with-fwph"], "A11"),
-    (["farmer", "--with-xhatlshaped"], "A11"),
-    (["farmer", "--with-cross-scenario"], "A11"),
-    (["farmer", "--EF"], "A11"),
-    (["farmer", "--num-scens", "4", "--num-bundles", "2"], "A11"),
-    (["sizes"], "A5b"),
+    (["farmer", "--with-fwph"], "A11b"),
+    (["farmer", "--with-cross-scenario"], "A11b"),
+    (["farmer", "--num-scens", "4", "--num-bundles", "2"], "A11b"),
     (["farmer", "--scenario-source", "streamed",
       "--subproblem-chunk", "2"], "A12"),
     (["farmer", "--mesh-devices", "2"], "A8"),
@@ -223,11 +219,85 @@ def test_cli_refuses_what_is_not_ported(argv, item):
              else argv)
 
 
+# what the refusals above named before the EF and L-shaped engines and
+# the models were ported, now run on the CPU: the command line, the
+# flags that let its spokes report, and what the last line must hold
+_SIZES_LP_EF = 220378.4643     # the sizes(3) EF LP, HiGHS (test_models)
+
+
+@pytest.mark.parametrize("argv,check", [
+    (["farmer", "--hub", "lshaped"], "sandwich"),
+    (["farmer", "--with-efmip", "--default-rho", "10", "--convthresh",
+      "-1", "--max-iterations", "400", "--rel-gap", "1e-3"], "sandwich"),
+    (["farmer", "--with-xhatlshaped", "--default-rho", "10",
+      "--convthresh", "-1", "--max-iterations", "30"], "sandwich"),
+    (["farmer", "--EF"], "ef"),
+    (["sizes", "--max-iterations", "5"], "sizes"),
+    (["farmer", "--hub", "lshaped", "--with-xhatlshaped"], "sandwich"),
+], ids=["lshaped-hub", "efmip", "xhatlshaped", "EF", "sizes",
+        "lshaped-xhatlshaped"])
+@pytest.mark.usefixtures("one_torch_thread")
+def test_cli_runs_what_is_now_ported(argv, check, capsys):
+    """``python -m mpisppy_tpu_torch ... --device cpu``: the L-shaped
+    hub, the EF-MIP and x̂-lshaped spokes end with outer <= -108390 <=
+    inner (within the JAX wheel tests' 1.0; a null inner bound only for
+    the hub alone, as the JAX CLI prints it), ``--EF`` prints the EF
+    value -108390 (rel 1e-4), and the sizes PH wheel's outer bound lies
+    below the sizes EF LP (tests/test_models.py's 1e-2 band)."""
+    import json
+    assert main(argv + ["--device", "cpu"]) == 0
+    result = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    if check == "ef":
+        assert result["ef_objective"] == pytest.approx(EF_OBJ, rel=1e-4)
+        return
+    outer, inner = result["outer_bound"], result["inner_bound"]
+    assert np.isfinite(outer)
+    if check == "sizes":
+        assert outer <= _SIZES_LP_EF + 1e-2 * _SIZES_LP_EF
+        return
+    assert outer <= EF_OBJ + 1.0
+    if inner is not None or len(argv) > 3:
+        assert inner is not None and inner >= EF_OBJ - 1.0
+        assert outer <= inner + 1e-5 * abs(inner)
+
+
+@pytest.mark.slow
+@pytest.mark.usefixtures("one_torch_thread")
+def test_cli_sizes_integer_ef(capsys):
+    """``sizes --EF --EF-integer --device cpu``: the EF MIP through host
+    HiGHS at the JAX CLI's 120 s limit, 220000 to 2 significant digits
+    (tests/test_mip.py:32's bar)."""
+    import json
+    import math
+    assert main(["sizes", "--EF", "--EF-integer", "--device", "cpu"]) == 0
+    obj = json.loads(capsys.readouterr().out.strip().splitlines()[-1])[
+        "ef_objective"]
+    assert round(obj, -int(math.floor(math.log10(abs(obj)))) + 1) == 220000
+
+
+@pytest.mark.parametrize("argv", [
+    ["farmer", "--EF"],
+    ["sizes", "--EF", "--EF-integer"],
+    ["farmer", "--hub", "lshaped", "--with-xhatlshaped"],
+    ["farmer", "--with-efmip"],
+], ids=["EF", "EF-integer", "lshaped", "efmip"])
+def test_cli_new_paths_without_a_card_raise(argv, monkeypatch):
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(argv)
+
+
 def test_wheel_dicts_cover_every_ported_spoke_kind():
     """Every spoke kind either builds its dicts (on the run's device) or
     raises naming its ROADMAP.md item."""
     ported = [k for k in KNOWN_SPOKES
-              if k not in ("efmip", "fwph", "xhatlshaped", "cross_scenario")]
+              if k not in ("fwph", "cross_scenario")]
+    for kind in ("fwph", "cross_scenario"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md A11b"):
+            wheel_dicts(RunConfig(model="farmer", num_scens=3,
+                                  device="cpu",
+                                  spokes=[SpokeConfig(kind=kind)]))
     cfg = RunConfig(model="farmer", num_scens=3, device="cpu",
                     spokes=[SpokeConfig(kind=k) for k in ported])
     hub_d, spoke_ds = wheel_dicts(cfg)
@@ -290,7 +360,7 @@ def test_kill_interrupts_candidate_stream():
 def test_base_receive_does_not_consume_cut_windows():
     """A cut payload written between the subclass's read and the base
     bound loop is NOT marked consumed (it would be lost). The cut
-    engine is not ported (ROADMAP.md A11): a stub engine and a stub
+    engine is not ported (ROADMAP.md A11b): a stub engine and a stub
     cut spoke stand in for CrossScenarioPH and its spoke."""
     class _Batch:
         S, K = 3, 2
