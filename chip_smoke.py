@@ -35,9 +35,9 @@
    rows tiled from the chunked batch (``block_scaling``), beside the
    step's three products as library calls and the step's floors;
 7. runs the native chunked loop on the reference backend (rho adapts)
-   for three PH iterations on the chunked path's batch
+   for DF32_ITERS PH iterations on the chunked path's batch
    (``native_reference``), then the JAX bench's df32 recipe (its DF32
-   dict, chunks of 16, three PH iterations, kernel mode auto) through
+   dict, chunks of 16, DF32_ITERS PH iterations, kernel mode auto) through
    ``PH(...).ph_main()`` on that batch (``df32_path``): checks the
    engine's iter-0 gate at the bench's 5e-3, the post-solve prox-on
    residual, the Eobjective within 2e-2 of the reference-backend run's,
@@ -99,6 +99,26 @@
    objective at the round's point (JAX tests/test_lshaped.py's bar);
    then holds the block against its plain version on the pinned
    operands at full width;
+15. spins the wheel that ``python -m mpisppy_tpu_torch uc --with-fwph``
+   builds (``fwph_path``: the RunConfig through utils/vanilla's hub and
+   spoke dicts and utils/sputils.spin_the_wheel) on phase 10's S = 10
+   batch, PH_OPTS' native options on the cuda block: the FWPH spoke runs
+   its iter 0 and FWPH_ITERS outer iterations while the PH hub iterates;
+   checks that the FWPH engine launched the block (counted per engine)
+   with no demotion, both iter-0 solves passed the gate,
+   sum_s p_s w_s = 0 at every first SDM pass, every published FWPH bound
+   is finite, at least FWPH's trivial bound less 1e-6 relative and at
+   most phase 10's incumbent value, and the simplex weights lie on the
+   simplex; holds the block against its plain version at full width on
+   the FWPH engine's linearized operands;
+16. runs ``python -m mpisppy_tpu_torch uc --num-bundles 5`` on that
+   batch (``bundle_path``: core/bundles.form_bundles, then
+   ``PH(...).ph_main()`` for BUNDLE_ITERS prox-on iterations): checks
+   that the bundled A is one shared 2-D matrix (52,032 x 17,472), the
+   block launched as planned with no demotion, the iter-0 gate,
+   sum_s p_s W_s = 0, finite bounds and a bundled trivial bound at most
+   phase 10's incumbent; holds the block against its plain version at
+   the bundled shapes and times it there beside the byte floor;
 14. solves ``python -m mpisppy_tpu_torch uc --EF`` on the reference
    instance at EF_SCENARIOS scenarios and ``farmer --EF`` on the card
    (``ef_path``: utils/vanilla.build_batch_for and core/ef.ExtensiveForm)
@@ -106,8 +126,8 @@
    (tests/test_models.py's band: rel 2e-3, abs 2e-2) and -108390
    (rel 1e-4);
 then prints one {"kernels": [...]} line whose launches count phases 3,
-5, 10, 11, 12 and 13 and whose max_abs_err is the largest of phases 4,
-5, 10, 11, 12 and 13.
+5, 10, 11, 12, 13, 15 and 16 and whose max_abs_err is the largest of
+phases 4, 5, 10, 11, 12, 13, 15 and 16.
 The last line is {"ok": true, "device": {...}}; any failed check raises.
 """
 
@@ -134,8 +154,9 @@ SLICE_INSTANCE = dict(num_gens=90, num_hours=48, min_up_down=True,
 SLICE_SCENARIOS = 10
 SLICE_BUDGET = 1500
 # the main path's PH options (a prox-on solve: the whole budget at fixed
-# rho in the block, then the finisher without the polish)
-PH_OPTS = {"defaultPHrho": 100.0, "PHIterLimit": 3, "convthresh": -1.0,
+# rho in the block, then the finisher without the polish); 2 prox-on
+# iterations (3 until a cut in depth for the script's time)
+PH_OPTS = {"defaultPHrho": 100.0, "PHIterLimit": 2, "convthresh": -1.0,
            "subproblem_kernel_mode": "fused",
            "subproblem_kernel_backend": "cuda",
            "subproblem_max_iter": SLICE_BUDGET,
@@ -147,6 +168,9 @@ PH_OPTS = {"defaultPHrho": 100.0, "PHIterLimit": 3, "convthresh": -1.0,
 # package's bench runs 1024 in chunks of 128; cut for the run's time)
 CHUNK_SCENARIOS = 40
 CHUNK = 16
+# prox-on iterations of the chunked path (PH_OPTS' 2 until a cut in depth
+# for the script's time; its unchunked comparison is after iteration 1)
+CHUNK_ITERS = 1
 # rows per call timed by block_scaling (128: the JAX bench's chunk)
 SCALING_ROWS = (16, 48, 128)
 
@@ -155,12 +179,14 @@ SCALING_ROWS = (16, 48, 128)
 # slice's batch, with these cuts: the base options are PH_OPTS (native
 # f64 on the cuda block, not the bench's df32 recipe, which never
 # enters the block), no padding to 128 rows (a TPU program-shape
-# device), and a wheel deadline of WHEEL_DEADLINE seconds. The bench's
-# 25 hub iterations fit (about 130 s on an H100 80GB HBM3 at 700 W),
-# and the x̂ spoke's first oracle round (three host MILPs and the exact
-# evaluation of one candidate) lands within the hub's iter 0, so the
-# deadline is a guard that the hub's iteration limit normally beats
-WHEEL_ITERS = 25
+# device), a wheel deadline of WHEEL_DEADLINE seconds, and WHEEL_ITERS
+# hub iterations where the bench runs 25 (a cut in depth for the
+# script's time: 25 took about 136 s on an H100 80GB HBM3 at 700 W).
+# The x̂ spoke's first oracle round (three host MILPs and the exact
+# evaluation of one candidate) lands within the hub's iter 0 and the
+# Lagrangian spoke's first bound within the first hub iterations, so
+# the deadline is a guard that the hub's iteration limit normally beats
+WHEEL_ITERS = 3
 WHEEL_DEADLINE = 300.0
 WHEEL_REL_GAP = 0.004
 WHEEL_GAP_MARKS = (0.01, 0.005)
@@ -173,10 +199,11 @@ XHAT_ORACLE = {"xhat_oracle_candidates": True,
 
 # APH (phases 11 and 12): the chunked path's batch under φ-dispatch of
 # a quarter of the scenarios (10 of 40: one 16-row chunk call per
-# partial iteration), and the sharded wheel at S = 4 (cut from the
+# partial iteration) for APH_ITERS iterations (5 until a cut in depth
+# for the script's time), and the sharded wheel at S = 4 (cut from the
 # chunked path's 40 for the run's time; the widths stay the reference
 # instance's)
-APH_ITERS = 5
+APH_ITERS = 3
 APH_FRAC = 0.25
 APH_SHARD_SCENARIOS = 4
 APH_SHARDS = 2
@@ -186,8 +213,9 @@ APH_SHARD_ITERS = 4
 # iterations (a cut in depth, for time). The EF (phase 14): the
 # reference instance at EF_SCENARIOS (its dense EF matrix is 7.3 GB in
 # f64; S = 10 would not fit the card) with EF_BUDGET ADMM iterations
-# (a cut in depth for the script's time: 12,000 steps landed 1.8e-5
-# from host HiGHS, the band is 2e-3)
+# (cuts in depth for the script's time: 12,000 steps landed 1.8e-5
+# from host HiGHS, 6,000 steps 3.3e-5, 4,000 steps 5.7e-5, the band is
+# 2e-3)
 LSHAPED_ITERS = 4
 # the reference-backend cut solve of phase 13's cut-at-point check: the
 # slice's step budget (rho adapts; the dual residual on the dispatch
@@ -195,7 +223,18 @@ LSHAPED_ITERS = 4
 # can afford)
 REF_CUT_ITERS = SLICE_BUDGET
 EF_SCENARIOS = 2
-EF_BUDGET = 6000
+EF_BUDGET = 3000
+# FWPH (phase 15): the slice's S = 10 batch; the spoke runs its iter 0
+# and FWPH_ITERS outer iterations of FWPH_FW_ITERS linearized solves
+# (cuts in depth, for time), and the hub iterates until the spoke's run
+# has ended (at most FWPH_HUB_ITERS iterations). Bundles (phase 16):
+# that batch in BUNDLES bundles of 2 scenarios (n = 17,472, m = 52,032
+# per bundle), PH for BUNDLE_ITERS prox-on iterations (a cut in depth)
+FWPH_ITERS = 2
+FWPH_FW_ITERS = 1
+FWPH_HUB_ITERS = 40
+BUNDLES = 5
+BUNDLE_ITERS = 2
 
 # kernel vs plain (see compare): the multiple of the plain version's
 # own summation-order spread that the bar allows, and the multiple of
@@ -766,7 +805,7 @@ def chunked_path(dev, batch, t_batch):
     from mpisppy_tpu_torch.ops.kernels import admm_block
 
     opts = {**PH_OPTS, "subproblem_chunk": CHUNK,
-            "subproblem_hospital": False}
+            "subproblem_hospital": False, "PHIterLimit": CHUNK_ITERS}
     on_card = torch.device(dev).type == "cuda"
     snap = Snapshot(at=1)
     if on_card:
@@ -971,9 +1010,10 @@ DF32 = {
     "display_timing": True,
 }
 # the JAX bench runs S = 1024 in chunks of 128; cut to the chunked
-# path's S = 40 in chunks of 16 for the run's time
+# path's S = 40 in chunks of 16 for the run's time, and to DF32_ITERS
+# PH iterations (3 until a cut in depth)
 DF32_CHUNK = 16
-DF32_ITERS = 3
+DF32_ITERS = 2
 # the engine's iter-0 feasibility gate as the JAX bench sets it beside
 # the DF32 dict (bench.py:640 for its PH hub, :697 for its gap warm-up)
 DF32_ITER0_TOL = 5e-3
@@ -1380,7 +1420,9 @@ def wheel_path(dev):
     Returns (block launches of the wheel, the block's largest
     difference from its plain version at the Lagrangian engine's
     shapes, the list of failed checks, the wheel's host batch, the x̂
-    spoke's incumbent first stage or None); prints one JSON line."""
+    spoke's incumbent first stage or None, and a summary for phases 15
+    and 16: the incumbent value, the hub's trivial bound and its
+    seconds per iteration); prints one JSON line."""
     import math
     import numpy as np
     import torch
@@ -1487,13 +1529,15 @@ def wheel_path(dev):
     batch = ph.batch
     best_xhat = (None if wheel.spokes[1].best_xhat is None
                  else np.array(wheel.spokes[1].best_xhat, dtype=float))
+    summary = {"inner": inner, "trivial_bound": trivial,
+               "hub_s_per_iteration": [r["seconds"] for r in rows]}
     del wheel, hub, ph, lag, xhat, factors, data, st, q
     # phase 13 reuses the host batch; its device copies go now
     batch.__dict__.pop("_dev_cache", None)
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
-    return launches, err, failures, batch, best_xhat
+    return launches, err, failures, batch, best_xhat, summary
 
 
 class APHLog(IterLog):
@@ -2191,6 +2235,343 @@ def lshaped_path(dev, batch, xhat):
     return launches, err, failures
 
 
+def fwph_config(dev):
+    """Phase 15's RunConfig: what ``python -m mpisppy_tpu_torch uc
+    --with-fwph`` builds, on the slice's instance and S, with PH_OPTS'
+    native f64 options on the cuda block for the hub and the FWPH spoke,
+    the spoke cut to FWPH_ITERS outer iterations of FWPH_FW_ITERS
+    linearized solves each (a cut in depth, for time)."""
+    from mpisppy_tpu_torch.utils.config import (AlgoConfig, RunConfig,
+                                                SpokeConfig)
+    base = dict(PH_OPTS)
+    algo = AlgoConfig(
+        default_rho=base["defaultPHrho"], max_iterations=FWPH_HUB_ITERS,
+        convthresh=-1.0, subproblem_max_iter=base["subproblem_max_iter"],
+        subproblem_eps=base["subproblem_eps"],
+        subproblem_polish_chunk=base["subproblem_polish_chunk"],
+        subproblem_kernel_mode=base["subproblem_kernel_mode"],
+        subproblem_kernel_backend=base["subproblem_kernel_backend"])
+    fw = dict(base, PHIterLimit=FWPH_ITERS, FW_iter_limit=FWPH_FW_ITERS)
+    return RunConfig(
+        model="uc", num_scens=SLICE_SCENARIOS,
+        model_kwargs=dict(SLICE_INSTANCE), algo=algo,
+        hub_options=dict(base, PHIterLimit=FWPH_HUB_ITERS, convthresh=-1.0,
+                         iter0_feas_tol=5e-3),
+        spokes=[SpokeConfig(kind="fwph", options=fw)],
+        wheel_deadline=WHEEL_DEADLINE, device=str(dev))
+
+
+def _fwph_recorder(last):
+    """FWPH that keeps, per outer iteration, its seconds, its linearized
+    solves and max |Σ_s p_s w_s| at the pass's first linearized solve
+    (the condition its bound rests on), and the iter-0 solve's max
+    pri_rel; sets ``last["started"]`` when its last outer iteration
+    starts, which the hub's converger (_until_fwph_last) reads."""
+    from mpisppy_tpu_torch.core.fwph import FWPH
+
+    class Recorder(FWPH):
+        def solve_loop(self, w_on=True, prox_on=True, update=True,
+                       fixed=False, dispatch=None):
+            out = super().solve_loop(w_on=w_on, prox_on=prox_on,
+                                     update=update, fixed=fixed,
+                                     dispatch=dispatch)
+            if w_on and not prox_on and not update and self._iter > 0:
+                self._linearized += 1
+            return out
+
+        def SDM(self, first_pass_bound=True):
+            if not hasattr(self, "sdm_rows"):
+                self.sdm_rows = []
+                self.iter0_max_pri_rel = float(
+                    self._qp_states[False].pri_rel.max())
+            if self._iter >= self.max_iterations:
+                last["started"] = True
+            _sync()
+            t0 = time.perf_counter()
+            self._linearized = 0
+            w_t = self.W + self.rho * (self._xn_t - self.xbar)
+            w_sum = float((self.prob @ w_t).abs().max())
+            w_scale = max(1.0, float(w_t.abs().max()))
+            out = super().SDM(first_pass_bound)
+            _sync()
+            self.sdm_rows.append({
+                "iter": self._iter, "seconds": time.perf_counter() - t0,
+                "linearized_solves": self._linearized, "gamma": out[1],
+                "local_bound": self._local_bound,
+                "sum_p_w_max": w_sum, "w_scale": w_scale})
+            return out
+
+    return Recorder
+
+
+def _until_fwph_last(last):
+    """Hub converger: the hub stops once the FWPH spoke has started its
+    last outer iteration. The hub's kill ends the spoke's run only after
+    that iteration publishes its bound (the engine tests the kill after
+    each sync), and the hub reads that bound at its final receive."""
+    class Until:
+        def __init__(self, ph):
+            pass
+
+        def is_converged(self):
+            return bool(last.get("started"))
+    return Until
+
+
+def fwph_path(dev, batch, phase10):
+    """Phase 15: the FWPH wheel on the slice's host batch (phase 10's
+    build): a PH hub and the FWPH spoke, which runs its iter 0 and
+    FWPH_ITERS outer iterations on the cuda block; the hub iterates
+    beside it until the spoke starts its last outer iteration, which
+    then runs alone on the card. Returns (block launches of the path,
+    the block's largest difference from its plain version at the FWPH
+    engine's linearized operands, the list of failed checks); prints
+    one JSON line."""
+    import math
+    import numpy as np
+    import torch
+    from mpisppy_tpu_torch import obs
+    from mpisppy_tpu_torch.core.ph import _ph_assemble
+    from mpisppy_tpu_torch.ops.kernels import admm_block
+    from mpisppy_tpu_torch.ops.simplex_qp import simplex_qp_solve
+    from mpisppy_tpu_torch.utils import vanilla
+    from mpisppy_tpu_torch.utils.sputils import spin_the_wheel
+
+    cfg = fwph_config(dev)
+    cfg.validate()
+    vanilla.refuse_unported(cfg)
+    hub_d = vanilla.hub_dict(cfg, batch=batch)
+    spoke_ds = [vanilla.spoke_dict(cfg, sp, batch=batch)
+                for sp in cfg.spokes]
+    last = {}
+    spoke_ds[0]["opt_class"] = _fwph_recorder(last)
+    it_log = IterLog()
+    hub_d["opt_kwargs"]["extensions"] = it_log
+    hub_d["opt_kwargs"]["converger"] = _until_fwph_last(last)
+    on_card = torch.device(dev).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    obs.configure()
+    admm_block.LAUNCHES = 0
+    t0 = it_log.t0 = time.perf_counter()
+    wheel = spin_the_wheel(hub_d, spoke_ds)
+    _sync()
+    t_wheel = time.perf_counter() - t0
+    launches = admm_block.LAUNCHES
+    demotions = obs.events("kernel.cuda_demotion")
+    obs.shutdown()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    ph, spoke = wheel.hub.opt, wheel.spokes[0]
+    fw = spoke.opt
+    per_engine = {"hub": ph.kernel_launches, "fwph": fw.kernel_launches}
+    plans = {str(k): {"backend": p.backend, "launches": p.launches}
+             for k, p in fw._kernel_plans.items()}
+    published = [b for _, b in spoke._trace]
+    rows = getattr(fw, "sdm_rows", [])
+    trivial = getattr(fw, "trivial_bound", None)
+    incumbent = phase10["inner"]
+    pri0 = getattr(fw, "iter0_max_pri_rel", None)
+    hub_pri0 = float(ph._qp_states[False].pri_rel.max())
+    failures = stuck_spokes("fwph_path")
+    if fw.kernel_launches <= 0:
+        failures.append("the FWPH engine launched no block")
+    plan = plans.get("False")
+    if plan is None or plan["backend"] != "cuda" or plan["launches"] <= 0:
+        failures.append(f"the FWPH engine's prox-off plan launched no "
+                        f"block: {plan}")
+    if sum(per_engine.values()) != launches:
+        failures.append(f"per-engine launches {per_engine} do not add up "
+                        f"to the block's {launches}")
+    if demotions:
+        failures.append(f"kernel demotion booked: {demotions}")
+    if pri0 is None or not pri0 <= 5e-3:
+        failures.append(f"FWPH iter-0 max pri_rel {pri0} above the gate")
+    if not hub_pri0 <= 5e-3:
+        failures.append(f"hub iter-0 max pri_rel {hub_pri0:.3e} above the "
+                        f"gate")
+    if len(rows) < FWPH_ITERS or len(published) < FWPH_ITERS:
+        failures.append(f"FWPH ran {len(rows)} outer iterations and "
+                        f"published {len(published)} bounds, expected "
+                        f"{FWPH_ITERS}")
+    elif not wheel.best_outer_bound >= max(published):
+        failures.append(f"the hub's outer bound {wheel.best_outer_bound} "
+                        f"is below the spoke's last bound {max(published)}")
+    for r in rows:
+        if not r["sum_p_w_max"] <= 1e-8 * r["w_scale"]:
+            failures.append(f"sum_s p_s w_s = {r['sum_p_w_max']:.3e} at "
+                            f"the first SDM pass of iteration {r['iter']}")
+    tol = 1e-6 * max(1.0, abs(trivial)) if trivial is not None else 0.0
+    for b in published:
+        if not (math.isfinite(b) and trivial is not None
+                and b >= trivial - tol
+                and (incumbent is None or b <= incumbent)):
+            failures.append(f"published FWPH bound {b} outside [trivial "
+                            f"{trivial} - {tol:.3g}, incumbent "
+                            f"{incumbent}]")
+    a = getattr(fw, "_a", None)
+    if a is None:
+        failures.append("FWPH kept no simplex weights")
+        a_sum_err = a_min = None
+    else:
+        a_sum_err = float((a.sum(dim=1) - 1.0).abs().max())
+        a_min = float(a.min())
+        if not (a_sum_err <= 1e-9 and a_min >= -1e-12):
+            failures.append(f"simplex weights off the simplex: sum error "
+                            f"{a_sum_err:.3e}, min {a_min:.3e}")
+    # the weight QP alone at the engine's final shapes
+    G = fw.columns[:, :, fw.nonant_idx]
+    base = (fw.columns @ fw.c.unsqueeze(-1)).squeeze(-1)
+    _sync()
+    t0 = time.perf_counter()
+    simplex_qp_solve(G, base, fw.W, fw.rho, fw.xbar, fw._a,
+                     iters=fw.qp_iters)
+    _sync()
+    t_qp = time.perf_counter() - t0
+    # the block at full width on the FWPH engine's linearized operands:
+    # the prox-off factor, the warm state its last linearized solve
+    # left, the cost at the next pass's w_t
+    factors, data = fw._get_factors(False)
+    st = fw._qp_states[False]
+    w_t = fw.W + fw.rho * (fw._xn_t - fw.xbar)
+    q, _, _ = _ph_assemble(data, fw.c, w_t, fw.xbar, fw.rho, fw.nonant_idx,
+                           fw._fixed_mask, fw._fixed_vals, None, w_on=True,
+                           prox_on=False)
+    err, f = compare(factors, data, q, st, 20, "fwph_linearized")
+    failures += f
+    admm_block.LAUNCHES = launches   # the comparison's are not the path's
+    log(json.dumps({
+        "phase": "fwph_path", "S": fw.batch.S, "n": fw.batch.n,
+        "m": fw.batch.m, "K": fw.batch.K, "wheel_s": t_wheel,
+        "fw_iter_limit": fw.FW_iter_limit, "columns": fw.max_columns,
+        "qp_iters": fw.qp_iters, "fwph_iter0_max_pri_rel": pri0,
+        "hub_iter0_max_pri_rel": hub_pri0, "outer_iterations": rows,
+        "s_per_outer_iteration": [r["seconds"] for r in rows],
+        "simplex_qp_solve_s": t_qp, "fwph_trivial_bound": trivial,
+        "published_bounds": published, "incumbent_phase_10": incumbent,
+        "best_outer": wheel.best_outer_bound,
+        "simplex_sum_err": a_sum_err, "simplex_min": a_min,
+        "hub_iterations": len(it_log.rows),
+        "hub_s_per_iteration": [r["seconds"] for r in it_log.rows],
+        "hub_s_per_iteration_phase_10": phase10["hub_s_per_iteration"],
+        "plans": plans, "launches_per_engine": per_engine,
+        "launches": launches, "demotions": len(demotions),
+        "peak_gb": peak_gb}))
+    del wheel, ph, spoke, fw, factors, data, st, q, w_t, G, base
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return launches, err, failures
+
+
+def bundle_path(dev, batch, phase10):
+    """Phase 16: ``python -m mpisppy_tpu_torch uc --num-bundles
+    BUNDLES`` on the slice's host batch: form_bundles, then
+    ``PH(...).ph_main()`` with PH_OPTS' native options for
+    BUNDLE_ITERS prox-on iterations (a cut in depth, for time) and the
+    wheel's iter-0 gate. Returns (block launches of the path, the
+    block's largest difference from its plain version at the bundled
+    shapes, the list of failed checks); prints one JSON line."""
+    import numpy as np
+    import torch
+    from mpisppy_tpu_torch import obs
+    from mpisppy_tpu_torch.core.bundles import form_bundles
+    from mpisppy_tpu_torch.core.ph import PH
+    from mpisppy_tpu_torch.ops.kernels import admm_block
+
+    # phase 10's engines' device copies of the unbundled batch go first
+    batch.__dict__.pop("_dev_cache", None)
+    gc.collect()
+    on_card = torch.device(dev).type == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    bundled = form_bundles(batch, BUNDLES)
+    t_form = time.perf_counter() - t0
+    failures = []
+    if not (bundled.shared_A and np.asarray(bundled.A).ndim == 2):
+        failures.append(f"the bundled A is not one shared 2-D matrix: "
+                        f"shape {np.asarray(bundled.A).shape}")
+    opts = dict(PH_OPTS, PHIterLimit=BUNDLE_ITERS, iter0_feas_tol=5e-3)
+    it_log = IterLog()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ph = PH(bundled, opts, device=dev, extensions=it_log)
+    _sync()
+    t_ship = time.perf_counter() - t0
+    obs.configure()
+    admm_block.LAUNCHES = 0
+    t0 = it_log.t0 = time.perf_counter()
+    conv, eobj, tbound = ph.ph_main()
+    _sync()
+    t_main = time.perf_counter() - t0
+    launches = admm_block.LAUNCHES
+    demotions = obs.events("kernel.cuda_demotion")
+    obs.shutdown()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    pri0 = float(ph._qp_states[False].pri_rel.max())
+    solves = 1 + len(it_log.rows)
+    expected = solves * admm_block.admm_block_launches(SLICE_BUDGET, False)
+    W = ph.W
+    w_sum = float((ph.prob @ W).abs().max())
+    w_scale = max(1.0, float(W.abs().max()))
+    incumbent = phase10["inner"]
+    if ph.qp_data.A.ndim != 2:
+        failures.append("the engine did not keep the bundles' shared A")
+    if launches != expected:
+        failures.append(f"admm_block launched {launches} kernels, "
+                        f"expected {expected}")
+    if any(p.backend != "cuda" for p in ph._kernel_plans.values()):
+        failures.append("a kernel plan of the bundle path is not cuda")
+    if demotions:
+        failures.append(f"kernel demotion booked: {demotions}")
+    if not pri0 <= 5e-3:
+        failures.append(f"iter-0 max pri_rel {pri0:.3e} above the gate")
+    if w_sum > 1e-8 * w_scale:
+        failures.append(f"sum_s p_s W_s = {w_sum:.3e} is not 0")
+    finite = [tbound, eobj, conv] + [r["conv"] for r in it_log.rows]
+    if not all(np.isfinite(v) for v in finite) \
+            or not bool(torch.isfinite(ph.xbar).all()):
+        failures.append(f"non-finite bound or iterate: {finite}")
+    if incumbent is not None and not tbound <= incumbent:
+        failures.append(f"bundled trivial bound {tbound} above phase 10's "
+                        f"incumbent {incumbent}")
+    # the block at the bundled shapes, from the engine's prox-on state
+    factors, data = ph._get_factors(True)
+    st = ph._qp_states[True]
+    q, _, _ = _assembled_q(ph, data)
+    err, f = compare(factors, data, q, st, 20, "bundles_prox_on")
+    failures += f
+    steps = 20
+    ms = cuda_ms(lambda: admm_block.fused_admm_block(
+        factors, data, q, st, n_steps=steps, sigma=factors.sigma,
+        scen_tile=0), 2)
+    admm_block.LAUNCHES = launches   # the comparison's and timing's
+    S, n = st.x.shape
+    m = st.zA.shape[1]
+    floor_ms = 8 * (m * n + n * n) / HBM_BYTES_PER_S * 1e3
+    log(json.dumps({
+        "phase": "bundle_path", "bundles": bundled.S, "S": batch.S,
+        "n": bundled.n, "m": bundled.m, "A_shape": list(ph.qp_data.A.shape),
+        "form_bundles_s": t_form, "ship_s": t_ship, "ph_main_s": t_main,
+        "iter0_max_pri_rel": pri0, "iterations": it_log.rows,
+        "trivial_bound": tbound, "trivial_bound_unbundled_phase_10":
+            phase10["trivial_bound"], "incumbent_phase_10": incumbent,
+        "eobjective": eobj, "conv": conv,
+        "phase_seconds": {str(k): v["acc"] for k, v in
+                          ph._phase_times.items()},
+        "block_ms_per_step": ms / steps,
+        "byte_floor_ms_per_step": floor_ms,
+        "launches": launches, "expected_launches": expected,
+        "demotions": len(demotions), "sum_p_W_max": w_sum,
+        "peak_gb": peak_gb}))
+    del ph, factors, data, st, q, W, bundled
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return launches, err, failures
+
+
 def ef_linprog(batch):
     """The host HiGHS LP of ``batch``'s extensive form, built as
     tests/test_models.py's ef_linprog builds it: S copies of the
@@ -2326,6 +2707,14 @@ def main():
     pin_precision()
 
     log(card_line())
+    # wall seconds per phase group, printed before the kernels line
+    seconds, t_mark = {}, [time.perf_counter()]
+
+    def mark(name):
+        now = time.perf_counter()
+        seconds[name] = now - t_mark[0]
+        t_mark[0] = now
+
     t0 = time.perf_counter()
     _build.build_all()
     t_build = time.perf_counter() - t0
@@ -2337,16 +2726,21 @@ def main():
                                      _build.BUILD_INFO.items()},
                     "ptxas": ptxas}))
     dev = torch.device("cuda")
+    mark("1_build")
     kernel_checks(dev)
+    mark("2_kernel_checks")
     ph, launches = main_path(dev)
     timing = time_block(ph, steps=20, reps=3)
+    mark("3_4_main_path_and_timing")
     del ph
     gc.collect()
     torch.cuda.empty_cache()
     batch, t_batch = chunk_batch()
     scaling_ops, chunk_launches, chunk_err, native, failures = \
         chunked_path(dev, batch, t_batch)
+    mark("5_chunked_path")
     native_ms = block_scaling(scaling_ops)
+    mark("6_block_scaling")
     if failures:
         raise RuntimeError("chunked path failed: " + "; ".join(failures))
     del scaling_ops
@@ -2363,44 +2757,63 @@ def main():
     if failures:
         raise RuntimeError("df32 path failed: " + "; ".join(failures))
     df32_scaling(ph, native_ms)
+    mark("7_8_native_reference_df32")
     del ph
     # the APH path ships the dense A again (phase 11)
     batch.__dict__.pop("_dev_cache", None)
     gc.collect()
     torch.cuda.empty_cache()
     mixed_check(dev)
-    wheel_launches, wheel_err, failures, slice_batch, wheel_xhat = \
-        wheel_path(dev)
+    mark("9_mixed_check")
+    (wheel_launches, wheel_err, failures, slice_batch, wheel_xhat,
+     phase10) = wheel_path(dev)
     if failures:
         raise RuntimeError("wheel path failed: " + "; ".join(failures))
+    mark("10_wheel_path")
     aph_launches, aph_err, failures = aph_path(dev, batch, native)
+    mark("11_aph_path")
     if failures:
         raise RuntimeError("aph path failed: " + "; ".join(failures))
     del batch
     gc.collect()
     torch.cuda.empty_cache()
     shard_launches, shard_err, failures = aph_shard_wheel(dev)
+    mark("12_aph_shard_wheel")
     if failures:
         raise RuntimeError("aph shard wheel failed: " + "; ".join(failures))
     ls_launches, ls_err, failures = lshaped_path(dev, slice_batch,
                                                  wheel_xhat)
+    mark("13_lshaped_path")
     if failures:
         raise RuntimeError("lshaped path failed: " + "; ".join(failures))
+    fw_launches, fw_err, failures = fwph_path(dev, slice_batch, phase10)
+    mark("15_fwph_path")
+    if failures:
+        raise RuntimeError("fwph path failed: " + "; ".join(failures))
+    bundle_launches, bundle_err, failures = bundle_path(dev, slice_batch,
+                                                        phase10)
+    mark("16_bundle_path")
+    if failures:
+        raise RuntimeError("bundle path failed: " + "; ".join(failures))
     del slice_batch
     gc.collect()
     torch.cuda.empty_cache()
     failures = ef_path(dev)
+    mark("14_ef_path")
     if failures:
         raise RuntimeError("ef path failed: " + "; ".join(failures))
     launches += chunk_launches + wheel_launches + aph_launches \
-        + shard_launches + ls_launches
+        + shard_launches + ls_launches + fw_launches + bundle_launches
     # the largest difference at any shape of the path
     timing["max_abs_err"] = max(timing["max_abs_err"], chunk_err,
-                                wheel_err, aph_err, shard_err, ls_err)
+                                wheel_err, aph_err, shard_err, ls_err,
+                                fw_err, bundle_err)
     entry = {"name": "admm_block", "route": "cuda",
              "source": "mpisppy_tpu_torch/ops/kernels/csrc/admm_block.cu",
              "replaces": "mpisppy_tpu/ops/kernels/pallas_kernel.py:100",
              "launches": launches, **timing}
+    log(json.dumps({"phase": "script_seconds", **seconds,
+                    "total": sum(seconds.values())}))
     log(json.dumps({"kernels": [entry]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

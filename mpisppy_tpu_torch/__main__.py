@@ -9,9 +9,9 @@ extensive form (core/ef.py; ``--EF-integer`` as a MIP) and prints
 ``{"ef_objective": ...}``. Flag names mirror the JAX package's;
 ``--device`` picks the engines' device (default: the CUDA device; the
 run raises without one unless ``--device cpu`` is given). What the port
-does not run yet refuses, naming its ROADMAP.md item: the FWPH and
-cross-scenario spokes, bundling, the ``serve`` and ``analyze``
-subcommands and non-resident scenario sources.
+does not run yet refuses, naming its ROADMAP.md item: the cross-scenario
+spoke, the ``serve`` and ``analyze`` subcommands and non-resident
+scenario sources.
 
 Examples:
   python -m mpisppy_tpu_torch farmer --num-scens 3 --default-rho 1 \\
@@ -21,6 +21,10 @@ Examples:
   python -m mpisppy_tpu_torch farmer --hub lshaped --with-xhatlshaped \\
       --device cpu
   python -m mpisppy_tpu_torch sizes --EF --EF-integer --device cpu
+  python -m mpisppy_tpu_torch farmer --default-rho 10 --with-fwph \\
+      --device cpu
+  python -m mpisppy_tpu_torch farmer --num-scens 4 --num-bundles 2 \\
+      --with-lagrangian --with-xhatshuffle --device cpu
 """
 
 from __future__ import annotations

@@ -26,7 +26,7 @@ import torch
 
 from ..ir.batch import ScenarioBatch
 from ..ops.qp_solver import QPData, SplitMatrix, split_f32_np
-from ..utils.runtime import DTYPE, resolve_device
+from ..utils.runtime import DTYPE, resolve_device, to_host
 
 
 def ship_stacked(a_np, dtype, device):
@@ -198,3 +198,10 @@ class SPBase:
 
     def nonants_of(self, x):
         return x[..., self.nonant_idx]
+
+    # ---- reporting (ref. spbase.py:516-576) ----
+    def gather_var_values(self, x):
+        """Host-side dict {var_name: (S, size) ndarray}."""
+        xh = to_host(x)
+        return {name: xh[:, sl]
+                for name, sl in self.batch.template.var_slices.items()}

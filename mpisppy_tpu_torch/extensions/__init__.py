@@ -1,12 +1,41 @@
-"""Extension (plugin) protocol for algorithm engines (the port's copy
-of the JAX package's extensions/extension.py; its other extensions
-are not ported yet, ROADMAP.md A11b).
+"""Extension (plugin) protocol for algorithm engines, and the
+extensions the port runs (the port of the JAX package's extensions/).
 
 Engines call the hooks ``pre_iter0 / post_iter0 / miditer / enditer /
 post_everything`` around the iteration loop and ``post_solve`` after
 each batched solve pass, each with the engine as its argument.
+
+Not ported yet, each naming its ROADMAP.md item when imported:
+``DeviceFixer`` and ``DeviceNormRhoUpdater`` (the shrinking slice, A9)
+and ``WXBarWriter`` / ``WXBarReader`` (the checkpoint slice, A14).
 """
 
 from .extension import Extension, MultiExtension
+from .fixer import Fixer, FixerTuple
+from .mipgapper import Gapper
+from .norm_rho_updater import NormRhoUpdater
+from .xhatclosest import XhatClosest
+from .diagnoser import Diagnoser
+from .avgminmaxer import MinMaxAvg
 
-__all__ = ["Extension", "MultiExtension"]
+__all__ = [
+    "Extension", "MultiExtension", "Fixer", "FixerTuple", "Gapper",
+    "NormRhoUpdater", "XhatClosest", "Diagnoser", "MinMaxAvg",
+]
+
+# name -> (what it is, its ROADMAP.md item)
+_UNPORTED = {
+    "DeviceFixer": ("the device-side fixer over ops/shrink", "A9"),
+    "DeviceNormRhoUpdater": ("the per-slot device-side rho update over "
+                             "ops/shrink", "A9"),
+    "WXBarWriter": ("the W/x̄ checkpoint writer", "A14"),
+    "WXBarReader": ("the W/x̄ checkpoint reader", "A14"),
+}
+
+
+def __getattr__(name):
+    if name in _UNPORTED:
+        what, item = _UNPORTED[name]
+        raise NotImplementedError(f"{name} ({what}) is not ported yet "
+                                  f"(see ROADMAP.md {item})")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -6,8 +6,8 @@ validated RunConfig into the hub/spoke dict schema spin_the_wheel
 consumes, one factory per cylinder kind. Every cylinder gets its OWN
 engine over one shared host batch, on the run's ``device`` (None = the
 CUDA device). What the port does not run yet raises, naming its
-ROADMAP.md item: the FWPH and cross-scenario spokes, bundling, scenario
-streaming, the scenario-axis mesh, checkpoints and the live plane.
+ROADMAP.md item: the cross-scenario spoke, scenario streaming, the
+scenario-axis mesh, checkpoints and the live plane.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ _DTYPES = {"float32": torch.float32, "f32": torch.float32,
            "float64": torch.float64, "f64": torch.float64}
 
 # spoke kinds whose engines are not ported, with their items
-_UNPORTED_SPOKES = {"fwph": "A11b", "cross_scenario": "A11b"}
+_UNPORTED_SPOKES = {"cross_scenario": "A11c"}
 
 
 def _not_ported(what, item):
@@ -35,8 +35,6 @@ def refuse_unported(cfg: RunConfig):
         if sp.kind in _UNPORTED_SPOKES:
             raise _not_ported(f"the {sp.kind!r} spoke",
                               _UNPORTED_SPOKES[sp.kind])
-    if cfg.num_bundles:
-        raise _not_ported("scenario bundling", "A11b")
     if cfg.algo.scenario_source != "resident":
         raise _not_ported(f"scenario_source={cfg.algo.scenario_source!r}",
                           "A12")
@@ -60,7 +58,7 @@ def _pop_dtype(options):
 
 
 def build_batch_for(cfg: RunConfig):
-    """Model registry: name -> stacked batch. Models that export
+    """Model registry: name -> stacked batch (+ bundling). Models that export
     ``scenario_vector_patch`` get the structure-shared fast path
     (ir/batch.py build_batch(vector_patch=...)) automatically — at
     reference-UC scale that is the difference between one template
@@ -89,6 +87,9 @@ def build_batch_for(cfg: RunConfig):
     batch = build_batch(mod.scenario_creator, tree, creator_kwargs=kwargs,
                         vector_patch=getattr(mod, "scenario_vector_patch",
                                              None))
+    if cfg.num_bundles:
+        from ..core.bundles import form_bundles
+        batch = form_bundles(batch, cfg.num_bundles)
     obs.event("batch.build", {"model": cfg.model, "S": batch.S,
                               "K": batch.K, "n": batch.n,
                               "shared_A": bool(batch.shared_A)})
@@ -131,6 +132,7 @@ def spoke_classes(kind: str):
     """(spoke_class, opt_class) for a spoke kind."""
     if kind in _UNPORTED_SPOKES:
         raise _not_ported(f"the {kind!r} spoke", _UNPORTED_SPOKES[kind])
+    from ..core.fwph import FWPH
     from ..core.ph import PHBase
     from ..cylinders.lagrangian_bounder import (LagrangianOuterBound,
                                                 LagrangerOuterBound)
@@ -142,6 +144,7 @@ def spoke_classes(kind: str):
     from ..cylinders.slam_heuristic import (SlamUpHeuristic,
                                             SlamDownHeuristic)
     from ..cylinders.ef_bounder import EFMipBound
+    from ..cylinders.fwph_spoke import FrankWolfeOuterBound
 
     return {
         "lagrangian": (LagrangianOuterBound, PHBase),
@@ -151,6 +154,7 @@ def spoke_classes(kind: str):
         "xhatlooper": (XhatLooperInnerBound, PHBase),
         "xhatspecific": (XhatSpecificInnerBound, PHBase),
         "xhatlshaped": (XhatLShapedInnerBound, PHBase),
+        "fwph": (FrankWolfeOuterBound, FWPH),
         "slamup": (SlamUpHeuristic, PHBase),
         "slamdown": (SlamDownHeuristic, PHBase),
         # device-side batched incumbent search

@@ -58,7 +58,18 @@ def test_every_module_imports_with_jax_poisoned():
               "mpisppy_tpu_torch.core.aph_shard",
               "mpisppy_tpu_torch.ops.dispatch",
               "mpisppy_tpu_torch.ops.native",
-              "mpisppy_tpu_torch.utils.multiproc"):
+              "mpisppy_tpu_torch.utils.multiproc",
+              # FWPH, bundling and the extensions
+              "mpisppy_tpu_torch.ops.simplex_qp",
+              "mpisppy_tpu_torch.core.fwph",
+              "mpisppy_tpu_torch.core.bundles",
+              "mpisppy_tpu_torch.cylinders.fwph_spoke",
+              "mpisppy_tpu_torch.extensions.fixer",
+              "mpisppy_tpu_torch.extensions.mipgapper",
+              "mpisppy_tpu_torch.extensions.norm_rho_updater",
+              "mpisppy_tpu_torch.extensions.xhatclosest",
+              "mpisppy_tpu_torch.extensions.diagnoser",
+              "mpisppy_tpu_torch.extensions.avgminmaxer"):
         assert m in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"

@@ -486,6 +486,70 @@ def test_block_on_pinned_lshaped_operands_matches_plain(cuda):
     _against_plain_two_orders(f, data._replace(lb=bl, ub=bu), q, st, False)
 
 
+_UC_BLOCK_OPTS = {"defaultPHrho": 100.0, "PHIterLimit": 1,
+                  "convthresh": -1.0, "subproblem_kernel_mode": "fused",
+                  "subproblem_kernel_backend": "cuda",
+                  "subproblem_max_iter": 400,
+                  "subproblem_polish_hot": False,
+                  "subproblem_polish_chunk": 2}
+
+
+def _uc_batch(S):
+    from mpisppy_tpu_torch.ir.batch import build_batch
+    from mpisppy_tpu_torch.models import uc
+    return build_batch(uc.scenario_creator, uc.make_tree(S),
+                       creator_kwargs={"num_gens": 3, "num_hours": 6},
+                       vector_patch=uc.scenario_vector_patch)
+
+
+@pytest.mark.cuda
+def test_block_on_bundled_uc_matches_plain(cuda):
+    """The block on a bundled UC (6 scenarios in 3 bundles of 2): the
+    bundles share one 2-D matrix, the engine's plans are the cuda block
+    and launched, and 20 kernel steps on the prox-on state after one PH
+    iteration match the plain version."""
+    from mpisppy_tpu_torch.core.bundles import form_bundles
+    from mpisppy_tpu_torch.core.ph import PH, _ph_assemble
+
+    bundled = form_bundles(_uc_batch(6), 3)
+    assert bundled.shared_A
+    ph = PH(bundled, dict(_UC_BLOCK_OPTS), device=cuda)
+    ph.ph_main(finalize=False)
+    assert ph.qp_data.A.ndim == 2
+    for key, plan in ph._kernel_plans.items():
+        assert plan.backend == "cuda" and plan.launches > 0, key
+    f, data = ph._get_factors(True)
+    q, _, _ = _ph_assemble(data, ph.c, ph.W, ph.xbar, ph.rho,
+                           ph.nonant_idx, ph._fixed_mask, ph._fixed_vals,
+                           None, w_on=True, prox_on=True)
+    _against_plain_two_orders(f, data, q, ph._qp_states[True], False)
+
+
+@pytest.mark.cuda
+def test_block_on_fwph_linearized_state_matches_plain(cuda):
+    """The block on FWPH's linearized operands: the prox-off factor and
+    the warm state its last linearized solve left, the cost at the
+    w_t = W + ρ(x_t − x̄) of the next pass (E[w_t] = 0 there); the
+    engine launched the block on its prox-off plan."""
+    from mpisppy_tpu_torch.core.fwph import FWPH
+    from mpisppy_tpu_torch.core.ph import _ph_assemble
+
+    fw = FWPH(_uc_batch(3), dict(_UC_BLOCK_OPTS, PHIterLimit=2,
+                                 FW_iter_limit=2, fwph_max_columns=4),
+              device=cuda)
+    fw.fwph_main(finalize=False)
+    plan = fw._kernel_plans[False]
+    assert plan.backend == "cuda" and plan.launches > 0
+    w_t = fw.W + fw.rho * (fw._xn_t - fw.xbar)
+    assert float((fw.prob @ w_t).abs().max()) \
+        <= 1e-9 * max(1.0, float(w_t.abs().max()))
+    f, data = fw._get_factors(False)
+    q, _, _ = _ph_assemble(data, fw.c, w_t, fw.xbar, fw.rho, fw.nonant_idx,
+                           fw._fixed_mask, fw._fixed_vals, None, w_on=True,
+                           prox_on=False)
+    _against_plain_two_orders(f, data, q, fw._qp_states[False], False)
+
+
 @pytest.mark.cuda
 def test_certified_cuts_hold_on_the_card(cuda):
     """The L-shaped cut builder on the card, on duals that certify

@@ -200,9 +200,7 @@ def test_cli_aph_hub(capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["farmer", "--with-fwph"], "A11b"),
-    (["farmer", "--with-cross-scenario"], "A11b"),
-    (["farmer", "--num-scens", "4", "--num-bundles", "2"], "A11b"),
+    (["farmer", "--with-cross-scenario"], "A11c"),
     (["farmer", "--scenario-source", "streamed",
       "--subproblem-chunk", "2"], "A12"),
     (["farmer", "--mesh-devices", "2"], "A8"),
@@ -219,9 +217,10 @@ def test_cli_refuses_what_is_not_ported(argv, item):
              else argv)
 
 
-# what the refusals above named before the EF and L-shaped engines and
-# the models were ported, now run on the CPU: the command line, the
-# flags that let its spokes report, and what the last line must hold
+# what the refusals above named before the EF, L-shaped and FWPH
+# engines, bundling and the models were ported, now run on the CPU: the
+# command line, the flags that let its spokes report, and what the last
+# line must hold
 _SIZES_LP_EF = 220378.4643     # the sizes(3) EF LP, HiGHS (test_models)
 
 
@@ -234,16 +233,25 @@ _SIZES_LP_EF = 220378.4643     # the sizes(3) EF LP, HiGHS (test_models)
     (["farmer", "--EF"], "ef"),
     (["sizes", "--max-iterations", "5"], "sizes"),
     (["farmer", "--hub", "lshaped", "--with-xhatlshaped"], "sandwich"),
+    (["farmer", "--with-fwph", "--default-rho", "10", "--convthresh",
+      "-1", "--max-iterations", "10", "--subproblem-max-iter", "4000"],
+     "outer"),
+    (["farmer", "--num-scens", "4", "--num-bundles", "2", "--default-rho",
+      "10", "--convthresh", "-1", "--max-iterations", "5",
+      "--with-xhatshuffle"], "bundles"),
 ], ids=["lshaped-hub", "efmip", "xhatlshaped", "EF", "sizes",
-        "lshaped-xhatlshaped"])
+        "lshaped-xhatlshaped", "fwph", "bundles"])
 @pytest.mark.usefixtures("one_torch_thread")
 def test_cli_runs_what_is_now_ported(argv, check, capsys):
     """``python -m mpisppy_tpu_torch ... --device cpu``: the L-shaped
     hub, the EF-MIP and x̂-lshaped spokes end with outer <= -108390 <=
     inner (within the JAX wheel tests' 1.0; a null inner bound only for
     the hub alone, as the JAX CLI prints it), ``--EF`` prints the EF
-    value -108390 (rel 1e-4), and the sizes PH wheel's outer bound lies
-    below the sizes EF LP (tests/test_models.py's 1e-2 band)."""
+    value -108390 (rel 1e-4), the sizes PH wheel's outer bound lies
+    below the sizes EF LP (tests/test_models.py's 1e-2 band), the FWPH
+    spoke's wheel ends with an outer bound <= -108390 + 1, and farmer(4)
+    in 2 bundles with the x̂ spoke brackets the farmer(4) EF within
+    1.0."""
     import json
     assert main(argv + ["--device", "cpu"]) == 0
     result = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
@@ -254,6 +262,17 @@ def test_cli_runs_what_is_now_ported(argv, check, capsys):
     assert np.isfinite(outer)
     if check == "sizes":
         assert outer <= _SIZES_LP_EF + 1e-2 * _SIZES_LP_EF
+        return
+    if check == "outer":
+        assert outer <= EF_OBJ + 1.0
+        return
+    if check == "bundles":
+        from mpisppy_tpu_torch.core.ef import ExtensiveForm
+        ef4, _ = ExtensiveForm(_farmer(4), device="cpu") \
+            .solve_extensive_form()
+        assert inner is not None
+        assert outer <= ef4 + 1.0 and inner >= ef4 - 1.0
+        assert outer <= inner + 1e-5 * abs(inner)
         return
     assert outer <= EF_OBJ + 1.0
     if inner is not None or len(argv) > 3:
@@ -290,14 +309,13 @@ def test_cli_new_paths_without_a_card_raise(argv, monkeypatch):
 
 def test_wheel_dicts_cover_every_ported_spoke_kind():
     """Every spoke kind either builds its dicts (on the run's device) or
-    raises naming its ROADMAP.md item."""
-    ported = [k for k in KNOWN_SPOKES
-              if k not in ("fwph", "cross_scenario")]
-    for kind in ("fwph", "cross_scenario"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A11b"):
-            wheel_dicts(RunConfig(model="farmer", num_scens=3,
-                                  device="cpu",
-                                  spokes=[SpokeConfig(kind=kind)]))
+    raises naming its ROADMAP.md item; FWPH is ported (its opt class is
+    the FWPH engine)."""
+    ported = [k for k in KNOWN_SPOKES if k != "cross_scenario"]
+    assert "fwph" in ported
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A11c"):
+        wheel_dicts(RunConfig(model="farmer", num_scens=3, device="cpu",
+                              spokes=[SpokeConfig(kind="cross_scenario")]))
     cfg = RunConfig(model="farmer", num_scens=3, device="cpu",
                     spokes=[SpokeConfig(kind=k) for k in ported])
     hub_d, spoke_ds = wheel_dicts(cfg)
@@ -306,6 +324,11 @@ def test_wheel_dicts_cover_every_ported_spoke_kind():
     for sd in [hub_d] + spoke_ds:
         assert sd["opt_kwargs"]["device"] == "cpu"
         assert sd["opt_kwargs"]["batch"] is hub_d["opt_kwargs"]["batch"]
+    from mpisppy_tpu_torch.core.fwph import FWPH
+    from mpisppy_tpu_torch.cylinders.fwph_spoke import FrankWolfeOuterBound
+    fw = spoke_ds[ported.index("fwph")]
+    assert fw["opt_class"] is FWPH
+    assert fw["spoke_class"] is FrankWolfeOuterBound
 
 
 # ---- the protocol cases of the JAX package's cylinder tests ----
@@ -360,7 +383,7 @@ def test_kill_interrupts_candidate_stream():
 def test_base_receive_does_not_consume_cut_windows():
     """A cut payload written between the subclass's read and the base
     bound loop is NOT marked consumed (it would be lost). The cut
-    engine is not ported (ROADMAP.md A11b): a stub engine and a stub
+    engine is not ported (ROADMAP.md A11c): a stub engine and a stub
     cut spoke stand in for CrossScenarioPH and its spoke."""
     class _Batch:
         S, K = 3, 2
