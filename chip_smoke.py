@@ -119,6 +119,23 @@
    sum_s p_s W_s = 0, finite bounds and a bundled trivial bound at most
    phase 10's incumbent; holds the block against its plain version at
    the bundled shapes and times it there beside the byte floor;
+17. runs problem shrinking on that batch (``shrink_path``): PH with
+   PH_OPTS and bench.py's hub shrink settings (the device fixer after 4
+   agreeing iterations at tol 1e-3, compaction at buckets 0.25 / 0.5 /
+   0.75) for SHRINK_ITERS prox-on iterations; checks that a compaction
+   happened, that the compacted prox-on solves ran the block on their
+   own plan with no demotion, iter 0, sum_s p_s W_s = 0 and finite
+   results; prints the fixed fraction, (m_c, n_c) and seconds per
+   iteration, the re-factorizations and the peak memory; holds the block
+   against its plain version on the first compacted solve's operands and
+   times it there beside the byte bound and three torch.matmul per step;
+   then one prox-on iteration compacted against one on the full pin-box
+   system from the same carried PH and solver state, both solved to
+   1e-5 on the reference backend (their Eobjective and x̄ differences
+   beside the JAX round-trip bar);
+18. runs the port's twin of ``__graft_entry__.entry()`` (``entry_path``:
+   one PH step on uc(8, 4, 6)) once on the card and checks its shapes and
+   that it is finite;
 14. solves ``python -m mpisppy_tpu_torch uc --EF`` on the reference
    instance at EF_SCENARIOS scenarios and ``farmer --EF`` on the card
    (``ef_path``: utils/vanilla.build_batch_for and core/ef.ExtensiveForm)
@@ -126,8 +143,8 @@
    (tests/test_models.py's band: rel 2e-3, abs 2e-2) and -108390
    (rel 1e-4);
 then prints one {"kernels": [...]} line whose launches count phases 3,
-5, 10, 11, 12, 13, 15 and 16 and whose max_abs_err is the largest of
-phases 4, 5, 10, 11, 12, 13, 15 and 16.
+5, 10, 11, 12, 13, 15, 16 and 17 and whose max_abs_err is the largest
+of phases 4, 5, 10, 11, 12, 13, 15, 16 and 17.
 The last line is {"ok": true, "device": {...}}; any failed check raises.
 """
 
@@ -226,15 +243,32 @@ EF_SCENARIOS = 2
 EF_BUDGET = 3000
 # FWPH (phase 15): the slice's S = 10 batch; the spoke runs its iter 0
 # and FWPH_ITERS outer iterations of FWPH_FW_ITERS linearized solves
-# (cuts in depth, for time), and the hub iterates until the spoke's run
-# has ended (at most FWPH_HUB_ITERS iterations). Bundles (phase 16):
+# (cuts in depth, for time; with 2, the first outer iteration took
+# 113 s beside the hub on an H100 80GB HBM3 at 700 W), and the hub
+# iterates until the spoke starts its last outer iteration (at most
+# FWPH_HUB_ITERS iterations). Bundles (phase 16):
 # that batch in BUNDLES bundles of 2 scenarios (n = 17,472, m = 52,032
 # per bundle), PH for BUNDLE_ITERS prox-on iterations (a cut in depth)
-FWPH_ITERS = 2
+FWPH_ITERS = 1
 FWPH_FW_ITERS = 1
 FWPH_HUB_ITERS = 40
 BUNDLES = 5
 BUNDLE_ITERS = 2
+# problem shrinking (phase 17): the slice's S = 10 batch with bench.py's
+# hub settings (bench.py:901-903: the device fixer after 4 agreeing
+# iterations at tol 1e-3, compaction at the 0.25 / 0.5 / 0.75 buckets);
+# SHRINK_ITERS prox-on iterations, the earliest fixing landing at 4
+SHRINK_OPTS = {"shrink_fix": True, "shrink_compact": True,
+               "shrink_buckets": "0.25,0.5,0.75", "shrink_fix_iters": 4,
+               "shrink_fix_tol": 1e-3}
+SHRINK_ITERS = 6
+# the equivalence check's solves (phase 17): adaptive rho to 1e-5 (to
+# 1e-6 they took 24 s compacted and 51 s pinned on an H100 80GB HBM3 at
+# 700 W, too long for the script's limit)
+SHRINK_EQUIV_SOLVE = {"subproblem_kernel_backend": "reference",
+                      "subproblem_max_iter": 20000,
+                      "subproblem_eps_hot": 1e-5,
+                      "subproblem_eps_dua_hot": 1e-5}
 
 # kernel vs plain (see compare): the multiple of the plain version's
 # own summation-order spread that the bar allows, and the multiple of
@@ -2550,6 +2584,7 @@ def bundle_path(dev, batch, phase10):
     S, n = st.x.shape
     m = st.zA.shape[1]
     floor_ms = 8 * (m * n + n * n) / HBM_BYTES_PER_S * 1e3
+    lib_ms = library_ms(factors.A_s, st.L, S, steps)
     log(json.dumps({
         "phase": "bundle_path", "bundles": bundled.S, "S": batch.S,
         "n": bundled.n, "m": bundled.m, "A_shape": list(ph.qp_data.A.shape),
@@ -2562,6 +2597,7 @@ def bundle_path(dev, batch, phase10):
                           ph._phase_times.items()},
         "block_ms_per_step": ms / steps,
         "byte_floor_ms_per_step": floor_ms,
+        "library_ms_per_step": lib_ms,
         "launches": launches, "expected_launches": expected,
         "demotions": len(demotions), "sum_p_W_max": w_sum,
         "peak_gb": peak_gb}))
@@ -2570,6 +2606,336 @@ def bundle_path(dev, batch, phase10):
     if on_card:
         torch.cuda.empty_cache()
     return launches, err, failures
+
+
+def library_ms(A, F, S, steps, reps=2):
+    """ms per step of the block's three products as torch.matmul calls
+    (w·A, v·F, v·Aᵀ at S rows): the library yardstick of block_timing."""
+    import torch
+    m, n = A.shape
+    w = torch.randn(S, m, dtype=A.dtype, device=A.device)
+    v = torch.randn(S, n, dtype=A.dtype, device=A.device)
+
+    def lib():
+        for _ in range(steps):
+            torch.matmul(w, A)
+            torch.matmul(v, F)
+            torch.matmul(v, A.T)
+
+    return cuda_ms(lib, reps) / steps
+
+
+def _shrink_log():
+    """An extension (the port's Extension, so it composes after the
+    device fixer): IterLog with the fixed fraction, the active shapes
+    and the bucket after every prox-on iteration."""
+    from mpisppy_tpu_torch.extensions import Extension
+
+    class ShrinkLog(IterLog, Extension):
+        solve_shape = None
+        iter0_pri_rel = None
+
+        def post_solve(self, ph):
+            super().post_solve(ph)
+            # the shape this solve ran at (before the fixer's miditer
+            # may compact)
+            plan = ph._shrink
+            self.solve_shape = (ph.batch.n, ph.batch.m) if plan is None \
+                else (plan.n_c, plan.m_c)
+
+        def post_iter0(self, ph):
+            super().post_iter0(ph)
+            self.iter0_pri_rel = float(ph._qp_states[False].pri_rel.max())
+
+        def miditer(self, ph):
+            super().miditer(ph)
+            st = ph._shrink_status
+            self.rows[-1].update(
+                solve_n=self.solve_shape[0], solve_m=self.solve_shape[1],
+                fixed_fraction_after=st["fixed"] / ph.batch.K,
+                bucket_after=st["bucket"])
+
+    return ShrinkLog()
+
+
+def _carried(src, dst):
+    """``dst`` takes ``src``'s PH state (W, x̄, x̄², rho, the fixings)."""
+    dst.W, dst.xbar, dst.xsqbar = src.W, src.xbar, src.xsqbar
+    dst.rho = src.rho
+    dst.fix_nonants(src._fixed_vals, mask=src._fixed_mask)
+    dst._iter = src._iter
+
+
+def shrink_path(dev, batch):
+    """Phase 17: problem shrinking on the slice's S = 10 batch, the
+    uc-ref-S10 options with the device fixer and active-set compaction
+    at bench.py's hub settings (shrink_fix_iters 4, shrink_fix_tol 1e-3,
+    buckets 0.25, 0.5, 0.75), SHRINK_ITERS prox-on iterations through
+    ``PH(...).ph_main()``. Checks that a compaction happened, that the
+    compacted solves ran the block (its own plans, no demotion), the
+    iter-0 gate, sum_s p_s W_s = 0 and finite results; holds the block
+    against its plain version on the first compacted solve's operands
+    and times it there beside the byte bound and the library; then runs
+    one prox-on iteration compacted and one on the full pin-box system
+    from the same carried PH state (both solver states cold) and prints
+    their relative differences in Eobjective and x̄ beside the JAX
+    round-trip bar. Returns (block launches of the run, the block's
+    largest difference from its plain version, failed checks)."""
+    import numpy as np
+    import torch
+    from mpisppy_tpu_torch import obs
+    import mpisppy_tpu_torch.core.ph as ph_mod
+    from mpisppy_tpu_torch.core.ph import PH
+    from mpisppy_tpu_torch.extensions import DeviceFixer, MultiExtension
+    from mpisppy_tpu_torch.ops.kernels import admm_block
+
+    opts = dict(PH_OPTS, PHIterLimit=SHRINK_ITERS, **SHRINK_OPTS)
+    log_ = _shrink_log()
+    on_card = torch.device(dev).type == "cuda"
+    if on_card:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ph = PH(batch, opts, device=dev,
+            extensions=MultiExtension([DeviceFixer(opts), log_]))
+    _sync()
+    t_ship = time.perf_counter() - t0
+    first = {}
+    orig = ph_mod._solver_call
+
+    def spy(factors, d, q, state, **kw):
+        # the first compacted solve's operands (nothing is written in
+        # place, so references keep them)
+        if ph._shrink is not None and "st" not in first \
+                and kw.get("kernel") is not None:
+            first.update(f=factors, d=d, q=q, st=state)
+        return orig(factors, d, q, state, **kw)
+
+    ph_mod._solver_call = spy
+    obs.configure()
+    admm_block.LAUNCHES = 0
+    try:
+        t0 = log_.t0 = time.perf_counter()
+        conv, eobj, tbound = ph.ph_main()
+        _sync()
+        t_main = time.perf_counter() - t0
+        launches = admm_block.LAUNCHES
+    finally:
+        ph_mod._solver_call = orig
+        demotions = obs.events("kernel.cuda_demotion")
+        obs.shutdown()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    st = dict(ph._shrink_status)
+    failures = []
+    rows = log_.rows
+    pri0 = log_.iter0_pri_rel
+    if st["compactions"] < 1 or ph._shrink is None:
+        failures.append(f"no compaction in {SHRINK_ITERS} iterations "
+                        f"(fixed fraction {st['fixed'] / ph.batch.K:.3f})")
+    plan = ph._kernel_plans.get(True)
+    if plan is None or plan.backend != "cuda" or plan.launches == 0:
+        failures.append("the compacted prox-on solves did not run the "
+                        "block")
+    if launches == 0:
+        failures.append("admm_block launched no kernel on the path")
+    if demotions:
+        failures.append(f"kernel demotion booked: {demotions}")
+    if pri0 is None or not pri0 <= 1e-3:
+        failures.append(f"iter-0 max pri_rel {pri0:.3e} above the gate")
+    w_sum = float((ph.prob @ ph.W).abs().max())
+    if w_sum > 1e-8 * max(1.0, float(ph.W.abs().max())):
+        failures.append(f"sum_s p_s W_s = {w_sum:.3e} is not 0")
+    finite = [tbound, eobj, conv] + [r["conv"] for r in rows]
+    if not all(np.isfinite(v) for v in finite) \
+            or not bool(torch.isfinite(ph.xbar).all()):
+        failures.append(f"non-finite bound or iterate: {finite}")
+    if ph.x.shape != (batch.S, batch.n):
+        failures.append(f"x is not full width: {tuple(ph.x.shape)}")
+    row = {"phase": "shrink_path", "S": batch.S, "n": batch.n,
+           "m": batch.m, "K": batch.K, "options": dict(SHRINK_OPTS),
+           "ship_s": t_ship, "ph_main_s": t_main,
+           "iter0_max_pri_rel": pri0, "iterations": rows,
+           "shrink_status": st, "trivial_bound": tbound,
+           "eobjective": eobj, "conv": conv, "launches": launches,
+           "compacted_plan_launches": None if plan is None
+           else plan.launches, "demotions": len(demotions),
+           "sum_p_W_max": w_sum, "peak_gb": peak_gb}
+    err = 0.0
+    if "st" in first:
+        f, d, q, st0 = first["f"], first["d"], first["q"], first["st"]
+        S, n_c = st0.x.shape
+        m_c = st0.zA.shape[1]
+        row["first_compacted_shape"] = {"m_c": m_c, "n_c": n_c}
+        row["last_compacted_shape"] = {"m_c": st["m_rows"],
+                                       "n_c": st["n_cols"]}
+        if not admm_block.scope_supported(f, st0):
+            failures.append("the compacted solve left the block's scope")
+        err, fl = compare(f, d, q, st0, 20, "shrink_compacted")
+        failures += fl
+        steps = 20
+        ms = cuda_ms(lambda: admm_block.fused_admm_block(
+            f, d, q, st0, n_steps=steps, sigma=f.sigma, scen_tile=0), 2)
+        L = st0.L
+        lib = library_ms(f.A_s, L, S, steps)
+        admm_block.LAUNCHES = launches   # comparison and timing launches
+        # the byte bound as PERF.md §6 works it: A and F each read once
+        # per step, at the data-sheet bandwidth
+        row.update(block_ms_per_step=ms / steps,
+                   byte_bound_ms_per_step=8 * (m_c * n_c + n_c * n_c)
+                   / HBM_BYTES_PER_S * 1e3,
+                   full_width_byte_bound_ms_per_step=8 * (
+                       batch.m * batch.n + batch.n * batch.n)
+                   / HBM_BYTES_PER_S * 1e3,
+                   library_ms_per_step=lib)
+        del f, d, q, st0, L
+    else:
+        failures.append("no compacted solve was seen")
+    first.clear()
+    full = [r["seconds"] for r in rows if r["solve_n"] == batch.n]
+    comp = [r["seconds"] for r in rows if r["solve_n"] < batch.n]
+    row["s_per_iter_full_width"] = full
+    row["s_per_iter_compacted"] = comp
+    if not failures:
+        row["equivalence"] = _shrink_equivalence(dev, batch, ph)
+    log(json.dumps(row))
+    del ph
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return launches, err, failures
+
+
+def _expanded_state(ph, full):
+    """``ph``'s compacted prox-on solver state as a warm start of
+    ``full``'s prox-on factors: unscaled with the compacted factors (the
+    row slacks re-centred by the plan's rhs shift), expanded to full
+    width (the fixed columns at their folded values, the dropped rows'
+    slacks A·x, their duals and the fixed columns' bound duals 0), then
+    scaled with the full factors (ops/shrink._transplant_rescale's
+    relations, the other way)."""
+    import torch
+    from mpisppy_tpu_torch.ops.shrink import expand_solution
+    plan = ph._shrink
+    fc, _ = ph._get_factors(True)
+    st = ph._qp_states[True]
+    ff, fd = full._get_factors(True)
+
+    def b2(v):
+        return v if v.ndim == 2 else v.unsqueeze(0)
+
+    S = st.x.shape[0]
+    rows = torch.as_tensor(plan.keep_rows_np, device=st.x.device)
+    n, m = plan.n_full, plan.m_full
+    x_u = expand_solution(st.x * b2(fc.D), plan.fixed_colvals,
+                          plan.keep_cols, plan.fixed_cols, n)
+    zB_u = expand_solution(st.zB / b2(fc.Eb), plan.fixed_colvals,
+                           plan.keep_cols, plan.fixed_cols, n)
+    yB_u = torch.zeros((S, n), dtype=x_u.dtype, device=x_u.device) \
+        .index_copy(1, plan.keep_cols, st.yB * b2(fc.Eb) / fc.cost_scale)
+    zA_u = (x_u @ fd.A.T).index_copy(
+        1, rows, st.zA / b2(fc.E) + plan.rhs_shift)
+    yA_u = torch.zeros((S, m), dtype=x_u.dtype, device=x_u.device) \
+        .index_copy(1, rows, st.yA * b2(fc.E) / fc.cost_scale)
+    cs = ff.cost_scale
+    return dict(x=x_u / b2(ff.D), zB=b2(ff.Eb) * zB_u,
+                zA=b2(ff.E) * zA_u, yA=cs * yA_u / b2(ff.E),
+                yB=cs * yB_u / b2(ff.Eb))
+
+
+def _pin_boosted_factors(full):
+    """Install ``full``'s prox-on factors set up on its PINNED boxes, so
+    the ADMM rho of the fixed columns is eq-boosted as a pinned solve's
+    is (core/ph _get_factors(fixed=True) does so for every nonant); the
+    cached data stays unpinned, as there."""
+    from mpisppy_tpu_torch.ops.qp_solver import qp_setup
+    d = full._data_with_prox(True)
+    idx, fm, fv = full.nonant_idx, full._fixed_mask, full._fixed_vals
+    pinned = d._replace(
+        lb=d.lb.index_copy(1, idx, d.lb[:, idx].where(~fm, fv)),
+        ub=d.ub.index_copy(1, idx, d.ub[:, idx].where(~fm, fv)))
+    full._factors[True] = (qp_setup(pinned, q_ref=full.c), d)
+
+
+def _shrink_equivalence(dev, batch, ph):
+    """One prox-on iteration compacted (``ph``, from its own warm state)
+    and one on the full pin-box system (a new engine with uc-ref-S10's
+    options and no compaction, carrying ``ph``'s PH state and its solver
+    state expanded to full width), both solved to SHRINK_EQUIV_SOLVE's
+    tolerance on the reference backend: the relative differences in
+    Eobjective and x̄ beside the JAX round trip bar (tests/test_shrink.py
+    :116, rel 1e-5)."""
+    from mpisppy_tpu_torch.core.ph import PH
+    from mpisppy_tpu_torch.ops.kernels import admm_block
+    n0 = admm_block.LAUNCHES
+    # both solves to solver tolerance: the block's fixed-rho budget
+    # leaves each system's iterate short of its optimum (ROADMAP B6),
+    # which would hide the compaction's arithmetic behind that gap
+    solve = dict(SHRINK_EQUIV_SOLVE)
+    full = PH(batch, dict(PH_OPTS, **solve), device=dev)
+    ph.sub_kernel_backend = solve["subproblem_kernel_backend"]
+    ph.sub_max_iter = solve["subproblem_max_iter"]
+    ph.sub_eps_hot = solve["subproblem_eps_hot"]
+    ph.sub_eps_dua_hot = solve["subproblem_eps_dua_hot"]
+    ph._retired_launches += ph._kernel_plans.pop(True).launches
+    _carried(ph, full)
+    _pin_boosted_factors(full)
+    warm = _expanded_state(ph, full)
+    full._qp_states[True] = full._ensure_state(True)._replace(**warm)
+    del warm
+    t0 = time.perf_counter()
+    ph.solve_loop(w_on=True, prox_on=True)
+    _sync()
+    t_c = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    full.solve_loop(w_on=True, prox_on=True)
+    _sync()
+    t_f = time.perf_counter() - t0
+    eobj_c, eobj_f = ph.Eobjective_value(), full.Eobjective_value()
+    admm_block.LAUNCHES = n0
+    out = {"eobjective_compacted": eobj_c, "eobjective_pin_box": eobj_f,
+           "eobjective_rel_diff": abs(eobj_c - eobj_f) / abs(eobj_f),
+           "xbar_rel_diff": _max_rel_diff(full.xbar, ph.xbar),
+           "jax_roundtrip_bar_rel": 1e-5,
+           "solve_loop_s_compacted": t_c, "solve_loop_s_pin_box": t_f}
+    del full
+    return out
+
+
+def entry_path(dev):
+    """Phase 18: the port's twin of __graft_entry__.entry() run once on
+    the card: one PH step on uc(S=8, G=4, T=6); checks the output shapes
+    and that every output is finite."""
+    import torch
+    from mpisppy_tpu_torch.entry import entry
+    t0 = time.perf_counter()
+    fn, args = entry(device=dev)
+    out = fn(*args)
+    _sync()
+    t = time.perf_counter() - t0
+    st, x, yA, yB, xn, xbar, xsqbar, W, conv, base, solved, dual = out
+    S, n = args[3].shape
+    K = args[10].shape[1]
+    m = args[2].l.shape[1]
+    want = {"x": (x, (S, n)), "yA": (yA, (S, m)), "yB": (yB, (S, n)),
+            "xn": (xn, (S, K)), "xbar": (xbar, (S, K)),
+            "xsqbar": (xsqbar, (S, K)), "W": (W, (S, K)),
+            "conv": (conv, ()), "base_obj": (base, (S,)),
+            "solved_obj": (solved, (S,)), "dual_obj": (dual, (S,)),
+            "state.x": (st.x, (S, n))}
+    failures = []
+    for name, (v, shape) in want.items():
+        if tuple(v.shape) != shape:
+            failures.append(f"entry {name} shape {tuple(v.shape)}, "
+                            f"expected {shape}")
+        if v.device.type != torch.device(dev).type \
+                or not bool(torch.isfinite(v).all()):
+            failures.append(f"entry {name} not finite on the card")
+    log(json.dumps({"phase": "entry_path", "S": S, "n": n, "m": m, "K": K,
+                    "seconds": t, "conv": float(conv),
+                    "eobjective": float(args[6] @ base),
+                    "iters": int(st.iters), "ok": not failures}))
+    return failures
 
 
 def ef_linprog(batch):
@@ -2795,6 +3161,14 @@ def main():
     mark("16_bundle_path")
     if failures:
         raise RuntimeError("bundle path failed: " + "; ".join(failures))
+    shrink_launches, shrink_err, failures = shrink_path(dev, slice_batch)
+    mark("17_shrink_path")
+    if failures:
+        raise RuntimeError("shrink path failed: " + "; ".join(failures))
+    failures = entry_path(dev)
+    mark("18_entry_path")
+    if failures:
+        raise RuntimeError("entry path failed: " + "; ".join(failures))
     del slice_batch
     gc.collect()
     torch.cuda.empty_cache()
@@ -2803,11 +3177,12 @@ def main():
     if failures:
         raise RuntimeError("ef path failed: " + "; ".join(failures))
     launches += chunk_launches + wheel_launches + aph_launches \
-        + shard_launches + ls_launches + fw_launches + bundle_launches
+        + shard_launches + ls_launches + fw_launches + bundle_launches \
+        + shrink_launches
     # the largest difference at any shape of the path
     timing["max_abs_err"] = max(timing["max_abs_err"], chunk_err,
                                 wheel_err, aph_err, shard_err, ls_err,
-                                fw_err, bundle_err)
+                                fw_err, bundle_err, shrink_err)
     entry = {"name": "admm_block", "route": "cuda",
              "source": "mpisppy_tpu_torch/ops/kernels/csrc/admm_block.cu",
              "replaces": "mpisppy_tpu/ops/kernels/pallas_kernel.py:100",

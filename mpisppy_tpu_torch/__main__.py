@@ -65,13 +65,13 @@ def make_parser() -> argparse.ArgumentParser:
                         "'segmented' = host-segmented drivers "
                         "bit-for-bit, 'fused' = one device program per "
                         "solve, 'auto' = fused where eligible")
-    # progressive problem shrinking (ops/shrink, doc/extensions.md
-    # §shrinking): device fixer, active-set compaction, per-slot rho
+    # progressive problem shrinking (ops/shrink): device fixer,
+    # active-set compaction, per-slot rho
     p.add_argument("--shrink-fix", action="store_true",
-                   help="device-side WW fixing: jitted per-var "
-                        "convergence counters pin converged nonants "
-                        "(the host Fixer's test-and-fix, zero big-array "
-                        "D2H per iteration)")
+                   help="device-side WW fixing: per-var convergence "
+                        "counters on the device pin converged nonants "
+                        "(the host Fixer's test-and-fix, one scalar "
+                        "read per iteration)")
     p.add_argument("--shrink-fix-iters", type=int, default=3,
                    help="consecutive converged iterations before a "
                         "nonant slot fixes")
@@ -81,8 +81,8 @@ def make_parser() -> argparse.ArgumentParser:
                    help="active-set compaction: gather unfixed "
                         "columns (and the rows they touch) into a "
                         "smaller system at bucketed fixed-fraction "
-                        "thresholds (one recompile per bucket "
-                        "transition); implies --shrink-fix semantics")
+                        "thresholds (one re-factorization per bucket "
+                        "transition and mode); implies --shrink-fix")
     p.add_argument("--shrink-buckets", type=str, default="0.25,0.5,0.75",
                    help="comma-separated fixed-fraction thresholds for "
                         "compaction bucket transitions")

@@ -27,8 +27,10 @@ instead of ⌈S/chunk⌉); otherwise every scenario solves and only the
 dispatched rows are accepted.
 
 Options (reference names): APHnu, APHgamma, dispatch_frac, aph_use_lag.
-The port has no shrinking, so the JAX package's full-dispatch pass on a
-compaction bucket transition has no counterpart here.
+Under active-set compaction (ops/shrink) an iteration whose miditer
+crossed a bucket dispatches every scenario once: the solve width changed
+and every warm store rebuilds, so the duals re-materialize at the new
+width before partial dispatch resumes.
 """
 
 from __future__ import annotations
@@ -120,6 +122,7 @@ class APH(PHBase):
         self.tau = self.phi = 0.0
         self._phi_stats = None   # the gate's φ-histogram row
         self._aph_status = None  # per-iteration dispatch record
+        self._aph_shrink_bucket = None  # the bucket of the last solve
 
     # ---- dispatch selection (ref. aph.py:592-640 _dispatch_list) ----
     def _dispatch_mask(self, it, frac):
@@ -171,6 +174,8 @@ class APH(PHBase):
             # masked acceptance: all S solved, dispatched rows accepted
             obs.counter_add("dispatch.solved_scenarios", self._S_orig)
             self.x = torch.where(m, self.x, x_old)
+            # dual merge only at matching widths: a bucket transition
+            # changes the QP dual width (its pass dispatches everyone)
             if yA_old is not None and yA_old.shape == self.yA.shape \
                     and yB_old.shape == self.yB.shape:
                 self.yA = torch.where(m, self.yA, yA_old)
@@ -281,6 +286,17 @@ class APH(PHBase):
                            self.verbose)
                 break
             self._ext("miditer")
+            cur_bucket = self._shrink.bucket \
+                if self._shrink is not None else None
+            if not full and cur_bucket != self._aph_shrink_bucket:
+                # a compaction bucket transition landed in this
+                # miditer: dispatch everyone this ONE iteration (iter
+                # 1's warm-up rule) so the duals re-materialize at the
+                # new width; partial dispatch resumes next iteration
+                full = True
+                mask = np.zeros(S, bool)
+                mask[:S_real] = True
+            self._aph_shrink_bucket = cur_bucket
             didx = None
             if not full and self._dispatch_capable():
                 didx = np.flatnonzero(mask)

@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import logging
 import time as _time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -69,8 +70,9 @@ def _mode_str(key):
     return "prox" if key else "noprox"
 
 
-def _not_ported(what):
-    return NotImplementedError(f"{what} is not ported yet (see ROADMAP.md)")
+def _not_ported(what, item=None):
+    where = "ROADMAP.md" if item is None else f"ROADMAP.md {item}"
+    return NotImplementedError(f"{what} is not ported yet (see {where})")
 
 
 def _ph_assemble(data, c, W, xbar, rho, idx, fixed_mask, fixed_vals,
@@ -130,6 +132,27 @@ def _ph_reduce(x, yA, yB, d, q, c, c0, P0, prob, xbar_w, memberships, idx,
         slot_slices=slot_slices)
     return xn, xbar_new, xsqbar_new, W_new, conv, base_obj, solved_obj, \
         dual_obj
+
+
+def _shrink_objs(x_full, c, c0, P0, W, idx, *, w_on):
+    """Objectives of an EXPANDED compacted solve, evaluated on the
+    full-width solution against the FULL cost structures, so they are
+    comparable with the uncompacted path's (the fixed columns enter
+    through their folded values). The dual bound stays on the compacted
+    system (_shrink_dual)."""
+    xn = x_full[:, idx]
+    base = torch.sum(c * x_full, dim=1) + c0 \
+        + 0.5 * torch.sum(P0 * x_full * x_full, dim=1)
+    solved = base + (torch.sum(W * xn, dim=1) if w_on else 0.0)
+    return xn, base, solved
+
+
+def _shrink_dual(d, q, c0_fold, yA, yB, x_c):
+    """Certified dual bound of a compacted solve: qp_dual_objective on
+    the compacted system plus the fold constant, which is the dual bound
+    of the PINNED full problem (lb = ub makes the fixed columns' dual
+    contribution that constant)."""
+    return qp_dual_objective(d, q, c0_fold, yA, yB, x_witness=x_c)
 
 
 def _pool_assemble(lb, ub, l, u, c, c0, vals, pin_mask, idx, sidx, pidx):
@@ -349,15 +372,22 @@ class PHBase(SPBase):
                 and self.dtype != torch.float64:
             raise ValueError(f"subproblem_precision={self.sub_precision!r}"
                              f" needs dtype=float64; got {self.dtype}")
+        # ---- progressive problem shrinking (ops/shrink) ----
+        self._shrink = None            # the active ops/shrink.ShrinkPlan
+        self._shrink_factors = {}      # prox_on -> (factors, data_c)
+        self._shrink_status = None     # plain host dict for reports
+        self._shrink_failed = set()    # targets whose plan came back None
+        self._transplant_src = None
         if opts.get("shrink_fix") or opts.get("shrink_compact") \
                 or opts.get("shrink_rho"):
-            with_prec = "" if self.sub_precision == "native" else \
-                f" with subproblem_precision={self.sub_precision!r}"
-            raise _not_ported("problem shrinking" + with_prec)
+            extensions = self._shrink_setup(batch, opts, extensions)
         self._kernel_plans = {}
         # ADMM block launches of plans already dropped (the live plans
         # book their own; kernel_launches sums both)
         self._retired_launches = 0
+        # factor builds of a mode built before (_book_factorization)
+        self.refactorizations = 0
+        self._factor_keys_built = set()
         self.rho_setter = rho_setter
         self.extensions = extensions
         self.converger_cls = converger
@@ -415,6 +445,45 @@ class PHBase(SPBase):
         return self._retired_launches + sum(
             p.launches for p in self._kernel_plans.values())
 
+    def _shrink_setup(self, batch, opts, extensions):
+        """Validate the shrink options, start ``_shrink_status`` and,
+        when the caller passed no extensions (the CLI), attach the
+        device fixer and the per-slot rho updater the options ask for.
+        Returns the engine's extensions."""
+        if opts.get("shrink_compact"):
+            if not opts.get("shrink_fix"):
+                raise ValueError("shrink_compact needs shrink_fix (the "
+                                 "compaction triggers on the device "
+                                 "fixer's fixed-fraction trajectory)")
+            if self.sub_precision != "native":
+                raise _not_ported(
+                    "active-set compaction with subproblem_precision="
+                    f"{self.sub_precision!r} (the split-f32 gather)",
+                    "A9b")
+        from ..utils.config import parse_shrink_buckets
+        self._shrink_buckets = parse_shrink_buckets(
+            opts.get("shrink_buckets", "0.25,0.5,0.75"))
+        self._shrink_status = {
+            "fixed": 0, "free": batch.K, "compactions": 0, "bucket": 0.0,
+            "n_cols": int(batch.n), "m_rows": int(batch.m),
+            "refactorizations": 0, "transplants": 0,
+            "transplant_cold": 0,
+            "est_hbm_bytes_per_iter": self._shrink_est_hbm(
+                int(batch.n), int(batch.m))}
+        if extensions is not None:
+            return extensions
+        from ..extensions.extension import MultiExtension
+        from ..extensions.fixer import DeviceFixer
+        from ..extensions.norm_rho_updater import DeviceNormRhoUpdater
+        exts = []
+        if opts.get("shrink_fix"):
+            exts.append(DeviceFixer(opts))
+        if opts.get("shrink_rho"):
+            exts.append(DeviceNormRhoUpdater(opts))
+        if not exts:
+            return None
+        return exts[0] if len(exts) == 1 else MultiExtension(exts)
+
     # ------------- observability plumbing -------------
     def _trace_note(self, etype, msg, **fields):
         """A recovery/hospital/standing note: a telemetry event, the
@@ -468,9 +537,13 @@ class PHBase(SPBase):
         there, and the ADMM bound-row rho must be eq-boosted for those
         columns or the solve crawls. The boost pattern depends only on
         WHICH columns are pinned, not the values, so one factorization
-        serves every candidate x̂. ``full`` is the JAX package's bypass
-        of an active shrink plan; the port has no shrinking, so every
-        factorization is full.
+        serves every candidate x̂.
+
+        While a shrink plan is active the hot-loop modes solve the
+        COMPACTED system (``_shrink_get_factors``); fixed-mode solves
+        (incumbent evaluation, cut generation) keep the full system.
+        ``full=True`` bypasses the plan for consumers that build their
+        operands full-width against ``self.c`` (the integer dive).
 
         Each mode runs its own setup (equilibration + scaled matrix),
         except in df32: there every mode, and every engine over the
@@ -481,8 +554,11 @@ class PHBase(SPBase):
         for; the engine's raw split A is swapped for a ScaledView over
         the scaled one, so the raw pair frees. The cached tensors are
         never written in place."""
+        if not fixed and not full and self._shrink is not None:
+            return self._shrink_get_factors(prox_on)
         key = ("fixed", bool(prox_on)) if fixed else bool(prox_on)
         if key not in self._factors:
+            self._book_factorization(key)
             d = self._data_with_prox(prox_on)
             d_setup = d
             if fixed:
@@ -526,6 +602,18 @@ class PHBase(SPBase):
             self._factors[key] = (fac, d)
         return self._factors[key]
 
+    def _book_factorization(self, key):
+        """Count a factor build of a mode built before (a rho change or
+        a compaction made the old one stale): on the block path each
+        costs a new explicit (n, n) inverse. ``key`` None books a
+        compacted build, always a re-factorization."""
+        if key is not None and key not in self._factor_keys_built:
+            self._factor_keys_built.add(key)
+            return
+        self.refactorizations += 1
+        if self._shrink_status is not None:
+            self._shrink_status["refactorizations"] += 1
+
     def _kernel_plan(self, key, factors, s_chunk=None):
         """Cached ops/kernels plan for one mode's factors (invalidated
         with them). ``s_chunk`` (rows per solve call, default S) enters
@@ -549,13 +637,13 @@ class PHBase(SPBase):
 
     def invalidate_factors(self):
         """Call after changing rho: drops the prox-on factors (fixed
-        mode's too), plans and solver states (chunked ones included); a
-        new rho also earns every blacklisted chunk and scenario a fresh
-        recovery chance."""
+        mode's and the compacted system's too), plans and solver states
+        (chunked ones included); a new rho also earns every blacklisted
+        chunk and scenario a fresh recovery chance."""
         self._retired_launches = self.kernel_launches
         self._kernel_plans.clear()
         for cache in (self._factors, self._qp_states, self._chunk_states,
-                      self._dispatch_stores):
+                      self._dispatch_stores, self._shrink_factors):
             cache.pop(True, None)
             cache.pop(("fixed", True), None)
         self._pool_states.clear()
@@ -563,6 +651,290 @@ class PHBase(SPBase):
         self._hospital_no_retry.clear()
         self._blacklist_calls.clear()
         self._chunk_idx_cache.clear()
+
+    # ------------- active-set compaction (ops/shrink) -------------
+    def _shrink_get_factors(self, prox_on: bool):
+        """Cached factorization of the COMPACTED system: one
+        re-factorization per (bucket transition, mode). Kept apart from
+        ``_factors``, which the full-width consumers read while the hot
+        loop solves the compacted system. The compacted A, factors and
+        data belong to this engine: nothing of them enters the batch
+        device cache (core/spbase) that the wheel's other engines read
+        at full width."""
+        key = bool(prox_on)
+        if key not in self._shrink_factors:
+            self._book_factorization(None)
+            plan = self._shrink
+            d = plan.data_c
+            if prox_on:
+                if d.P_diag.ndim == 1:
+                    # shared single-factor form: per-slot rho is a
+                    # vector add; per-SCENARIO rho would need the
+                    # batched representation
+                    if not bool((self.rho == self.rho[:1]).all()):
+                        raise ValueError(
+                            "active-set compaction of a shared-"
+                            "structure batch requires rho uniform "
+                            "across scenarios (per-slot vector rho is "
+                            "supported; per-scenario rho is not)")
+                    d = d._replace(P_diag=d.P_diag.index_add(
+                        0, plan.idx_c, self.rho[0, plan.free_slots_dev]))
+                else:
+                    d = d._replace(P_diag=d.P_diag.index_add(
+                        1, plan.idx_c,
+                        self.rho.index_select(1, plan.free_slots_dev)))
+            self._shrink_factors[key] = (qp_setup(d, q_ref=plan.c_c), d)
+        return self._shrink_factors[key]
+
+    def _shrink_dual_fold(self, shrink, w_on, prox_on):
+        """The per-iteration dual-bound constant of the compacted system
+        (ops/shrink.dual_fold): the base fold plus this iteration's W
+        and prox-centre terms of the folded slots."""
+        from ..ops.shrink import dual_fold
+        fsx = shrink.fixed_slots_dev
+        ws = None if self._w_scale is None else self._w_scale[:, fsx]
+        return dual_fold(shrink.c0_fold, self._fixed_vals[:, fsx],
+                         self.W[:, fsx], self.xbar[:, fsx],
+                         self.rho[:, fsx], ws, w_on=bool(w_on),
+                         prox_on=bool(prox_on))
+
+    def _shrink_est_hbm(self, n, m):
+        """Bytes per iteration of the active-set shapes under the JAX
+        package's traffic model (ops/kernels.est_hbm_bytes_per_iter's
+        tail), so reports show the bytes tracking the active set."""
+        from ..ops import kernels
+        chunk = int(self.options.get("subproblem_chunk", 0) or 0) \
+            or self.batch.S
+        return int(kernels.est_hbm_bytes_per_iter(
+            n=n, m=m, s_chunk=min(chunk, self.batch.S))["tail"])
+
+    def maybe_compact(self, nfixed=None):
+        """Active-set compaction trigger (DeviceFixer calls it after
+        each fixing pass): when the fixed fraction crosses the next
+        ``shrink_buckets`` threshold, gather the unfixed columns and the
+        rows they touch into a smaller system, re-factorize once per
+        mode, and solve THAT until the next transition. Returns True
+        when a compaction happened. A no-op unless ``shrink_compact`` is
+        on; A is then a dense (m, n) or (S, m, n) tensor (construction
+        refuses the split-f32 data, ROADMAP.md A9b)."""
+        if not bool(self.options.get("shrink_compact")):
+            return False
+        if nfixed is None:
+            nfixed = int(self._fixed_mask.all(dim=0).sum())
+        st = self._shrink_status
+        if st is not None:
+            st["fixed"], st["free"] = int(nfixed), \
+                self.batch.K - int(nfixed)
+        frac = nfixed / max(self.batch.K, 1)
+        crossed = [b for b in self._shrink_buckets if b <= frac]
+        target = crossed[-1] if crossed else None
+        current = self._shrink.bucket if self._shrink is not None else 0.0
+        if target is None or target <= current:
+            return False
+        if target in self._shrink_failed:
+            # a target whose plan came back None is not staged again
+            # every miditer; fixing still pays off through the pin boxes
+            return False
+        from ..ops import shrink as shrink_ops
+        plan = shrink_ops.build_plan(
+            self.qp_data, self.c, self.c0, self.nonant_idx,
+            self._fixed_mask, self._fixed_vals, target, dtype=self.dtype)
+        if plan is None:
+            self._shrink_failed.add(target)
+            obs.counter_add("shrink.compaction_skipped")
+            return False
+        # capture the surviving warm iterates BEFORE the invalidation
+        # drops them (pulled back by the new bucket's first state build)
+        self._transplant_capture(plan)
+        self._shrink = plan
+        self._compact_invalidate()
+        obs.counter_add("shrink.compactions")
+        obs.gauge_set("shrink.active_cols", plan.n_c)
+        obs.gauge_set("shrink.active_rows", plan.m_c)
+        if st is not None:
+            st["compactions"] += 1
+            st["bucket"] = plan.bucket
+            st["n_cols"], st["m_rows"] = plan.n_c, plan.m_c
+            st["est_hbm_bytes_per_iter"] = self._shrink_est_hbm(
+                plan.n_c, plan.m_c)
+        obs.event("shrink.compaction", {
+            "iter": self._iter, "bucket": plan.bucket,
+            "n_cols": plan.n_c, "m_rows": plan.m_c,
+            "n_full": plan.n_full, "m_full": plan.m_full,
+            "fixed_slots": plan.n_fixed_slots})
+        self._trace_note(
+            "shrink.note",
+            f"shrink: compacted to bucket {plan.bucket:g}: "
+            f"{plan.n_c}/{plan.n_full} cols, {plan.m_c}/{plan.m_full} "
+            f"rows ({plan.n_fixed_slots} nonants folded out)",
+            bucket=plan.bucket, n_cols=plan.n_c, m_rows=plan.m_c)
+        return True
+
+    def _compact_invalidate(self):
+        """A bucket transition changes every hot-loop solve shape: drop
+        the warm states (the transplant snapshot, taken just before,
+        survives: it is what the new bucket's first state build pulls
+        back), the compacted factors, the kernel plans of the compacted
+        modes (their launches carry into ``_retired_launches``; the
+        block's split schedule is a function of (m, n), so a plan of
+        another width cannot serve), the chunk plumbing and the
+        recovery bookkeeping. The FULL-system factor cache survives:
+        the full (A, P, rho) are unchanged, and the fixed-mode and
+        full-width consumers keep using it."""
+        self._shrink_factors.clear()
+        self._qp_states.clear()
+        self._chunk_states.clear()
+        self._dispatch_stores.clear()
+        for key in [k for k in self._kernel_plans if isinstance(k, bool)]:
+            self._retired_launches += self._kernel_plans.pop(key).launches
+        self._chunk_no_retry.clear()
+        self._hospital_no_retry.clear()
+        self._blacklist_calls.clear()
+        self._chunk_idx_cache.clear()
+        self._pool_states.clear()
+
+    # ---- cross-bucket warm transplant ----
+    def _transplant_book_cold(self, reason):
+        obs.counter_add("shrink.transplant_cold_fallbacks")
+        if self._shrink_status is not None:
+            self._shrink_status["transplant_cold"] += 1
+        obs.event("shrink.transplant_cold",
+                  {"iter": self._iter, "reason": reason})
+
+    def _transplant_fields(self, mode):
+        """One mode's warm SCALED ADMM iterates as full-(S, ·) tensors,
+        or None when the mode has nothing cached. The port's chunk view
+        holds the scaled iterates of the per-chunk states (pads
+        trimmed), and the dispatch store is a full-width QPState, so the
+        mode's cached state serves in every layout."""
+        st = self._qp_states.get(mode)
+        if st is None or st.x.shape[0] != self.batch.S:
+            return None
+        return {f: getattr(st, f) for f in ("x", "yA", "yB", "zA", "zB")}
+
+    def _transplant_capture(self, plan_new):
+        """Snapshot each hot-loop mode's warm iterates at a bucket
+        transition, for the NEW plan: only the iterates, the old
+        factors' scaling vectors (D, E, Eb, cost_scale) and the old
+        plan's geometry, never whole factors. A scenario fails the
+        capture gate, and restarts cold, when its iterates do not
+        certify themselves (x ≈ zB and A·x ≈ zA after unscaling: a
+        hospital-rescued row keeps diverged iterates under its clean
+        residuals) or when the hospital gave it up."""
+        self._transplant_src = None
+        if not bool(self.options.get("shrink_transplant", True)):
+            return
+        from ..ops.qp_solver import _Ax
+        S = self.batch.S
+        old = self._shrink
+        modes = {}
+        for mode in (True, False):
+            fields = self._transplant_fields(mode)
+            if fields is None:
+                continue
+            if old is not None:
+                ent = self._shrink_factors.get(mode) \
+                    or next(iter(self._shrink_factors.values()), None)
+            else:
+                ent = self._factors.get(mode)
+            if ent is None:
+                self._transplant_book_cold("no source factors")
+                continue
+            fac = ent[0]
+
+            def b2(v):
+                return v if v.ndim == 2 else v.unsqueeze(0)
+
+            x_u = fields["x"] * b2(fac.D)
+            zB_u = fields["zB"] / b2(fac.Eb)
+            zA_u = fields["zA"] / b2(fac.E)
+            ax_u = _Ax(ent[1].A, x_u)
+            gap = torch.maximum((x_u - zB_u).abs().amax(dim=1),
+                                (ax_u - zA_u).abs().amax(dim=1))
+            scale = torch.maximum(
+                torch.maximum(torch.ones_like(gap),
+                              x_u.abs().amax(dim=1)),
+                ax_u.abs().amax(dim=1))
+            gate = max(100 * _hot_eps(bool(mode), self.sub_eps,
+                                      self.sub_eps_hot), 1e-2)
+            ok = to_host(torch.isfinite(gap) & (gap / scale <= gate))
+            for g in self._hospital_no_retry.get(mode, ()):
+                if g < S:
+                    ok[g] = False
+            modes[mode] = {
+                "st": fields,
+                "fac": {"D": fac.D, "E": fac.E, "Eb": fac.Eb,
+                        "cs": fac.cost_scale},
+                "keep_cols": None if old is None else old.keep_cols_np,
+                "keep_rows": None if old is None else old.keep_rows_np,
+                "shift": None if old is None else old.rhs_shift,
+                "ok": ok}
+        if modes:
+            self._transplant_src = {"bucket": plan_new.bucket,
+                                    "modes": modes}
+
+    def _transplant_pull(self, key, factors_new):
+        """The captured warm iterates rescaled into the CURRENT plan's
+        geometry (ops/shrink._transplant_rescale), or None when no
+        snapshot applies. Books ``shrink.transplant_cold_fallbacks``
+        only when a snapshot for this plan exists and a guard rejects
+        it; no snapshot is the ordinary cold build."""
+        src = self._transplant_src
+        plan = self._shrink
+        if src is None or plan is None or src["bucket"] != plan.bucket \
+                or not isinstance(key, bool):
+            return None
+        mode = key if key in src["modes"] else next(iter(src["modes"]),
+                                                      None)
+        ent = src["modes"].get(mode)
+        if ent is None:
+            return None
+        new_keep, new_rows = plan.keep_cols_np, plan.keep_rows_np
+        old_keep = ent["keep_cols"]
+        if old_keep is None:
+            old_keep = np.arange(plan.n_full)
+        old_rows = ent["keep_rows"]
+        if old_rows is None:
+            old_rows = np.arange(plan.m_full)
+        st = ent["st"]
+        # buckets only ever FIX more slots, so the new kept set nests in
+        # the old one; anything else is not a gather and restarts cold
+        if st["x"].shape[-1] != old_keep.size \
+                or st["zA"].shape[-1] != old_rows.size \
+                or new_keep.size > old_keep.size \
+                or new_rows.size > old_rows.size:
+            self._transplant_book_cold("width mismatch")
+            return None
+        if not (np.isin(new_keep, old_keep).all()
+                and np.isin(new_rows, old_rows).all()):
+            self._transplant_book_cold("active set not nested")
+            return None
+        dev = self.device
+        pos_c = torch.as_tensor(np.searchsorted(old_keep, new_keep),
+                                device=dev)
+        pos_r = torch.as_tensor(np.searchsorted(old_rows, new_rows),
+                                device=dev)
+        shift_old = ent["shift"]
+        if shift_old is None:
+            # full-width source: no rhs fold
+            shift_old = torch.zeros((1, int(plan.m_full)),
+                                    dtype=plan.rhs_shift.dtype, device=dev)
+        fac_o = ent["fac"]
+        cs_ratio = factors_new.cost_scale / fac_o["cs"]
+        from ..ops.shrink import _transplant_rescale
+        x_n, yA_n, yB_n, zA_n, zB_n = _transplant_rescale(
+            st["x"], st["yA"], st["yB"], st["zA"], st["zB"], pos_c, pos_r,
+            fac_o["D"], factors_new.D, fac_o["E"], factors_new.E,
+            fac_o["Eb"], factors_new.Eb, cs_ratio, shift_old,
+            plan.rhs_shift, torch.as_tensor(ent["ok"], device=dev))
+        obs.counter_add("shrink.transplants")
+        if self._shrink_status is not None:
+            self._shrink_status["transplants"] += 1
+        obs.event("shrink.transplant", {
+            "iter": self._iter, "mode": _mode_str(mode),
+            "bucket": plan.bucket, "n_cols": plan.n_c,
+            "cold_rows": int((~ent["ok"]).sum())})
+        return {"x": x_n, "yA": yA_n, "yB": yB_n, "zA": zA_n, "zB": zB_n}
 
     def _ensure_state(self, prox_on=True, fixed=False):
         """Per-mode solver state (the KKT factor depends on the prox
@@ -574,8 +946,13 @@ class PHBase(SPBase):
         st = self._qp_states.get(key)
         if isinstance(st, _ChunkStateView):
             factors, d = self._get_factors(prox_on, fixed)
-            st = qp_cold_state(factors, d)._replace(
-                x=st.x, yA=st.yA, yB=st.yB, zA=st.zA, zB=st.zB)
+            cold = qp_cold_state(factors, d)
+            if st.x.shape[-1] == cold.x.shape[-1] \
+                    and st.zA.shape[-1] == cold.zA.shape[-1]:
+                st = cold._replace(x=st.x, yA=st.yA, yB=st.yB, zA=st.zA,
+                                   zB=st.zB)
+            else:
+                st = self._warm_from_transplant(key, factors, cold)
             self._qp_states[key] = st
             return st
         if key not in self._qp_states:
@@ -586,8 +963,22 @@ class PHBase(SPBase):
                     and other.zA.shape == st.zA.shape:
                 st = st._replace(x=other.x, yA=other.yA, yB=other.yB,
                                  zA=other.zA, zB=other.zB)
+            else:
+                # no same-width sibling: the cross-bucket snapshot
+                # (maybe_compact -> _transplant_capture) warm starts a
+                # new compacted geometry instead of cold zeros
+                st = self._warm_from_transplant(key, factors, st)
             self._qp_states[key] = st
         return self._qp_states[key]
+
+    def _warm_from_transplant(self, key, factors, cold):
+        """``cold`` with the transplanted iterates when a snapshot
+        applies at its shapes, else ``cold``."""
+        tp = self._transplant_pull(key, factors)
+        if tp is not None and tp["x"].shape == cold.x.shape \
+                and tp["zA"].shape == cold.zA.shape:
+            return cold._replace(**tp)
+        return cold
 
     def _warm_source(self, exclude=None):
         """The first cached state (QPState or chunk view) of a mode other
@@ -637,6 +1028,15 @@ class PHBase(SPBase):
                 and other.x.shape[0] == self.batch.S \
                 and other.zA.shape[1] == st0.zA.shape[1] \
                 and other.x.shape[-1] == st0.x.shape[-1]
+            if not transplant:
+                # no same-width sibling mode: the cross-bucket snapshot,
+                # rescaled into this geometry, when one applies
+                other = self._transplant_pull(key, factors)
+                transplant = other is not None \
+                    and other["x"].shape[-1] == st0.x.shape[-1] \
+                    and other["zA"].shape[-1] == st0.zA.shape[-1]
+                if transplant:
+                    other = SimpleNamespace(**other)
             states = []
             for idx, _ in slices:
                 st = st0
@@ -683,12 +1083,11 @@ class PHBase(SPBase):
         self._dispatch_stores[key] = st
         return st
 
-    def _dispatch_slices(self, dispatch, chunk, key):
+    def _dispatch_slices(self, dispatch, chunk):
         """(slices, padded ids) of a dispatch-masked pass: the ascending
         id list microbatched into full ``chunk``-row chunks, the last
         padded by repeating the last id (the _chunk_index convention).
-        Books the dispatch counters and the shape bucket."""
-        from ..ops import dispatch as dispatch_ops
+        Books the dispatch counters."""
         didx = np.asarray(dispatch, dtype=np.int64).ravel()
         scnt = int(didx.size)
         if scnt == 0:
@@ -701,9 +1100,6 @@ class PHBase(SPBase):
                                    device=self.device),
                    min(chunk, scnt - i * chunk))
                   for i in range(n_dchunks)]
-        dispatch_ops.register_bucket({
-            "n_chunks": n_dchunks, "chunk": chunk, "S": self.batch.S,
-            "mode": _mode_str(key)})
         obs.counter_add("dispatch.solved_scenarios", scnt)
         obs.counter_add("dispatch.skipped_scenarios",
                         max(self._S_orig - scnt, 0))
@@ -763,8 +1159,10 @@ class PHBase(SPBase):
             obs.complete_span(_PHASE_SPAN[phase], t_mark, now, cat="ph")
             t_mark = now
 
+        shrink = self._shrink if not fixed else None
+        step = _ph_step if shrink is None else self._shrink_step
         (qp_state, x, yA, yB, xn, xbar_new, xsqbar_new, W_new, conv,
-         base_obj, solved_obj, dual_obj) = _ph_step(
+         base_obj, solved_obj, dual_obj) = step(
             qp_state, factors, data, self.c, self.c0, self.P_diag,
             self.prob, self.xbar_weights, tuple(self.memberships),
             self.nonant_idx, self.W, self.xbar, self.rho,
@@ -793,6 +1191,60 @@ class PHBase(SPBase):
         self._last_dual_obj = dual_obj
         self._ext("post_solve")
         return solved_obj
+
+    def _assembly_operands(self, shrink):
+        """The assemble-side operands of a hot-loop solve: the cost, the
+        hub's (S, K) blocks and the nonant column index, gathered to the
+        free slots and the compacted columns under a shrink plan."""
+        if shrink is None:
+            return {"c": self.c, "W": self.W, "xbar": self.xbar,
+                    "rho": self.rho, "fm": self._fixed_mask,
+                    "fv": self._fixed_vals, "ws": self._w_scale,
+                    "idx": self.nonant_idx}
+        fs = shrink.free_slots_dev
+        return {"c": shrink.c_c, "W": self.W[:, fs],
+                "xbar": self.xbar[:, fs], "rho": self.rho[:, fs],
+                "fm": self._fixed_mask[:, fs],
+                "fv": self._fixed_vals[:, fs],
+                "ws": None if self._w_scale is None
+                else self._w_scale[:, fs], "idx": shrink.idx_c}
+
+    def _shrink_step(self, qp_state, factors, data, c, c0, P0, prob,
+                     xbar_w, memberships, idx, W, xbar, rho, fixed_mask,
+                     fixed_vals, wscale, *, w_on, prox_on, slot_slices,
+                     lap, kernel, **solve_kw):
+        """_ph_step on the compacted system (the arguments are
+        _ph_step's): assemble on the free-slot blocks, solve the
+        compacted system, expand, then reduce on the FULL blocks, so
+        x̄, W and conv come from the uncompacted path's arithmetic."""
+        from ..ops.shrink import expand_solution
+        shrink = self._shrink
+        asm = self._assembly_operands(shrink)
+        q_c, bl_c, bu_c = _ph_assemble(
+            data, asm["c"], asm["W"], asm["xbar"], asm["rho"], asm["idx"],
+            asm["fm"], asm["fv"], asm["ws"], w_on=w_on, prox_on=prox_on)
+        d_c = data._replace(lb=bl_c, ub=bu_c)
+        lap("assemble")
+        qp_state, x_c, yA, yB = _solver_call(
+            factors, d_c, q_c, qp_state, prox_on=prox_on, kernel=kernel,
+            **solve_kw)
+        if kernel is not None and kernel.mode == "fused" and obs.enabled():
+            obs.counter_add("kernel.fused_iters", int(qp_state.iters))
+        lap("solve")
+        x = expand_solution(x_c, shrink.fixed_colvals, shrink.keep_cols,
+                            shrink.fixed_cols, shrink.n_full)
+        xn, base_obj, solved_obj = _shrink_objs(x, c, c0, P0, W, idx,
+                                                w_on=w_on)
+        dual_obj = _shrink_dual(
+            d_c, q_c, self._shrink_dual_fold(shrink, w_on, prox_on), yA,
+            yB, x_c)
+        wmask = None if wscale is None else wscale > 0
+        xbar_new, xsqbar_new, W_new, conv = _ph_combine(
+            xn, prob, xbar_w, memberships, W, rho, wmask,
+            slot_slices=slot_slices)
+        lap("reduce")
+        return qp_state, x, yA, yB, xn, xbar_new, xsqbar_new, W_new, \
+            conv, base_obj, solved_obj, dual_obj
 
     def _solve_loop_chunked(self, chunk, w_on, prox_on, update,
                             fixed=False, dispatch=None):
@@ -839,7 +1291,7 @@ class PHBase(SPBase):
             states = self._ensure_chunk_states(key, factors, data, slices)
         else:
             from ..ops.dispatch import gather_rows
-            slices, ids_pad = self._dispatch_slices(dispatch, chunk, key)
+            slices, ids_pad = self._dispatch_slices(dispatch, chunk)
             dstore = self._dispatch_store(key, factors, data, slices)
             states = [dstore._replace(**{
                 f: gather_rows(getattr(dstore, f), idx)
@@ -877,18 +1329,28 @@ class PHBase(SPBase):
                               args=sp_args)
             t_mark = now
 
+        # active-set compaction (ops/shrink): the hot-loop modes solve
+        # the compacted system (``factors`` and ``data`` above are
+        # compacted already); the (S, K) hub blocks gather to the free
+        # slots for assembly, and pass 3 expands solutions back to full
+        # width
+        shrink = self._shrink if not fixed else None
+        asm = self._assembly_operands(shrink)
+        c0fold = None if shrink is None else self._shrink_dual_fold(
+            shrink, w_on, prox_on)
+
         # record layout (indices 0-3 are the _hospitalize contract):
         #  [st, x, yA, yB, d_c, q_c, factors]
         def _assemble(ci):
             idx_c, _ = slices[ci]
             d_c = data._replace(l=data.l[idx_c], u=data.u[idx_c],
                                 lb=data.lb[idx_c], ub=data.ub[idx_c])
-            ws = None if self._w_scale is None else self._w_scale[idx_c]
+            ws = None if asm["ws"] is None else asm["ws"][idx_c]
             q_c, bl_c, bu_c = _ph_assemble(
-                d_c, self.c[idx_c], self.W[idx_c], self.xbar[idx_c],
-                self.rho[idx_c], self.nonant_idx,
-                self._fixed_mask[idx_c], self._fixed_vals[idx_c], ws,
-                w_on=bool(w_on), prox_on=bool(prox_on))
+                d_c, asm["c"][idx_c], asm["W"][idx_c], asm["xbar"][idx_c],
+                asm["rho"][idx_c], asm["idx"], asm["fm"][idx_c],
+                asm["fv"][idx_c], ws, w_on=bool(w_on),
+                prox_on=bool(prox_on))
             return d_c._replace(lb=bl_c, ub=bu_c), q_c
 
         inputs = [_assemble(ci) for ci in range(len(slices))] \
@@ -1031,8 +1493,10 @@ class PHBase(SPBase):
         if bool(self.options.get("subproblem_hospital", True)) \
                 and not isinstance(data.A, (SplitMatrix, ScaledView)):
             gate_syncs += self._hospitalize(key, slices, solved_chunks,
-                                            data, thr, bool(w_on), bool(prox_on),
-                                            kw, pri_host=pri_host)
+                                            data, thr, bool(w_on),
+                                            bool(prox_on), kw,
+                                            pri_host=pri_host,
+                                            shrink=shrink)
         # standing casualties: rows still above the gate enter x̄/W with
         # their loose solutions this iteration; say so when anything
         # listens
@@ -1068,10 +1532,25 @@ class PHBase(SPBase):
         for ci, (idx_c, real) in enumerate(slices):
             st, x, yA, yB, d_h, q_h, _ = solved_chunks[ci]
             states[ci] = st
-            xn, base, solved, dual = _ph_chunk_objs(
-                x, yA, yB, d_h, q_h, self.c[idx_c], self.c0[idx_c],
-                self.P_diag[idx_c], self.nonant_idx, self.W[idx_c],
-                w_on=bool(w_on))
+            if shrink is not None:
+                # expand to full width (the fixed columns take their
+                # folded values) and evaluate the objectives on the FULL
+                # cost structures; the dual bound stays on the compacted
+                # system plus the fold
+                from ..ops.shrink import expand_solution
+                x_c = x
+                x = expand_solution(x_c, shrink.fixed_colvals[idx_c],
+                                    shrink.keep_cols, shrink.fixed_cols,
+                                    shrink.n_full)
+                xn, base, solved = _shrink_objs(
+                    x, self.c[idx_c], self.c0[idx_c], self.P_diag[idx_c],
+                    self.W[idx_c], self.nonant_idx, w_on=bool(w_on))
+                dual = _shrink_dual(d_h, q_h, c0fold[idx_c], yA, yB, x_c)
+            else:
+                xn, base, solved, dual = _ph_chunk_objs(
+                    x, yA, yB, d_h, q_h, self.c[idx_c], self.c0[idx_c],
+                    self.P_diag[idx_c], self.nonant_idx, self.W[idx_c],
+                    w_on=bool(w_on))
             keep = x.shape[0] if dispatch is not None else real
             for k, v in (("x", x), ("yA", yA), ("yB", yB), ("xn", xn),
                          ("base", base), ("solved", solved),
@@ -1139,7 +1618,7 @@ class PHBase(SPBase):
         return cat["solved"]
 
     def _hospitalize(self, key, slices, solved_chunks, data, thr, w_on,
-                     prox_on, kw, pri_host=None):
+                     prox_on, kw, pri_host=None, shrink=None):
         """Per-scenario rescue solves for chunked-mode stragglers. The
         shared factor's scaling and rho patterns are computed against
         the reference cost c while PH solves q = c + (W − ρx̄); for an
@@ -1154,8 +1633,12 @@ class PHBase(SPBase):
         cure is not treated again until re-admission.
 
         ``pri_host``: the gate's (n_chunks, chunk) host residual matrix;
-        cured rows are written back into it. Returns the number of
-        host transfers made (0 or 1)."""
+        cured rows are written back into it. Under a shrink plan
+        (``shrink``) ``data`` is the compacted system and the rescue
+        assembles from the compacted cost and the free-slot hub blocks,
+        so it solves the system the chunks solve and its rows scatter
+        back at the compacted width. Returns the number of host
+        transfers made (0 or 1)."""
         cap = int(self.options.get("subproblem_hospital_max", 4))
         failed = self._hospital_no_retry.setdefault(key, set())
         picks = []                      # (chunk, row, scenario, pri_rel)
@@ -1188,11 +1671,12 @@ class PHBase(SPBase):
             else data.P_diag[sel_t]
         d_h = QPData(P_b, A_b, data.l[sel_t], data.u[sel_t],
                      data.lb[sel_t], data.ub[sel_t])
-        ws = None if self._w_scale is None else self._w_scale[sel_t]
+        asm = self._assembly_operands(shrink)
+        ws = None if asm["ws"] is None else asm["ws"][sel_t]
         q_h, bl_h, bu_h = _ph_assemble(
-            d_h, self.c[sel_t], self.W[sel_t], self.xbar[sel_t],
-            self.rho[sel_t], self.nonant_idx, self._fixed_mask[sel_t],
-            self._fixed_vals[sel_t], ws, w_on=w_on, prox_on=prox_on)
+            d_h, asm["c"][sel_t], asm["W"][sel_t], asm["xbar"][sel_t],
+            asm["rho"][sel_t], asm["idx"], asm["fm"][sel_t],
+            asm["fv"][sel_t], ws, w_on=w_on, prox_on=prox_on)
         d_h = d_h._replace(lb=bl_h, ub=bu_h)
         fac_h = qp_setup(d_h, q_ref=q_h)
         st_h = qp_cold_state(fac_h, d_h)
@@ -1521,7 +2005,12 @@ class PHBase(SPBase):
             q = self.c.index_add(1, self.nonant_idx, -self.rho * Xt)
         else:
             q = self.c
-        st = self._ensure_state(prox_on)
+        if self._shrink is None:
+            st = self._ensure_state(prox_on)
+        else:
+            # the cached hot-loop state is compacted: dive from a
+            # full-width cold state instead of clobbering it
+            st = qp_cold_state(factors, d)
         kw = {}
         pf = self.options.get("xhat_dive_pin_frac")
         if pf is not None:

@@ -6,28 +6,25 @@ post_everything`` around the iteration loop and ``post_solve`` after
 each batched solve pass, each with the engine as its argument.
 
 Not ported yet, each naming its ROADMAP.md item when imported:
-``DeviceFixer`` and ``DeviceNormRhoUpdater`` (the shrinking slice, A9)
-and ``WXBarWriter`` / ``WXBarReader`` (the checkpoint slice, A14).
+``WXBarWriter`` / ``WXBarReader`` (the checkpoint slice, A14).
 """
 
 from .extension import Extension, MultiExtension
-from .fixer import Fixer, FixerTuple
+from .fixer import DeviceFixer, Fixer, FixerTuple
 from .mipgapper import Gapper
-from .norm_rho_updater import NormRhoUpdater
+from .norm_rho_updater import DeviceNormRhoUpdater, NormRhoUpdater
 from .xhatclosest import XhatClosest
 from .diagnoser import Diagnoser
 from .avgminmaxer import MinMaxAvg
 
 __all__ = [
-    "Extension", "MultiExtension", "Fixer", "FixerTuple", "Gapper",
-    "NormRhoUpdater", "XhatClosest", "Diagnoser", "MinMaxAvg",
+    "Extension", "MultiExtension", "DeviceFixer", "Fixer", "FixerTuple",
+    "Gapper", "DeviceNormRhoUpdater", "NormRhoUpdater", "XhatClosest",
+    "Diagnoser", "MinMaxAvg",
 ]
 
 # name -> (what it is, its ROADMAP.md item)
 _UNPORTED = {
-    "DeviceFixer": ("the device-side fixer over ops/shrink", "A9"),
-    "DeviceNormRhoUpdater": ("the per-slot device-side rho update over "
-                             "ops/shrink", "A9"),
     "WXBarWriter": ("the W/x̄ checkpoint writer", "A14"),
     "WXBarReader": ("the W/x̄ checkpoint reader", "A14"),
 }

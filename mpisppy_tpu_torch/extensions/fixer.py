@@ -1,6 +1,5 @@
-"""Fixer: WW-style iterative fixing of converged integer nonants (the
-port of the JAX package's extensions/fixer.py; its ``DeviceFixer``
-belongs to the shrinking slice, ROADMAP.md A9).
+"""Fixer and DeviceFixer: WW-style iterative fixing of converged integer
+nonants (the port of the JAX package's extensions/fixer.py).
 
 ref. mpisppy/extensions/fixer.py:50. The reference keeps a per-variable
 conv counter driven by the x̄² ≈ x̄² ("xbar squared vs xsqbar") variance
@@ -13,7 +12,8 @@ Batched form: the counters are (K,) integer arrays and the whole
 test-and-fix is one vectorized host pass per ``miditer`` over the
 engine's x̄, x̄² and nonants (read back from the device); fixing feeds
 ``PHBase.fix_nonants`` (bound pinning in the solve) with an accumulated
-mask.
+mask. ``DeviceFixer`` runs the same pass as device ops
+(ops/shrink.fixer_update) and drives active-set compaction.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from ..utils.runtime import to_host
 from .extension import Extension
@@ -139,9 +140,99 @@ class Fixer(Extension):
             print(f"Fixer: final fixed count {self.nfixed}")
 
 
-def __getattr__(name):
-    if name == "DeviceFixer":
-        raise NotImplementedError(
-            "DeviceFixer (the device-side fixer over ops/shrink) is not "
-            "ported yet (see ROADMAP.md A9)")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+class DeviceFixer(Extension):
+    """The Fixer's test-and-fix as device ops over the engine's (S, K)
+    state (ops/shrink.fixer_update): the per-slot counters, streaks and
+    the accumulated fix mask stay on the device, and the host reads ONE
+    scalar per pass (the fixed-slot count), after the PH step's
+    convergence read has already waited for the arrays.
+
+    With ``shrink_compact`` the fixed-count trajectory also drives
+    :meth:`PHBase.maybe_compact`, active-set compaction at the bucketed
+    thresholds.
+
+    options (the engine's options or a dict of their own):
+    ``id_fix_list_fct`` (the Fixer's contract), ``boundtol``,
+    ``shrink_fix_iters`` (the threshold when no fix-list function is
+    given) and ``shrink_fix_tol``."""
+
+    def __init__(self, options=None):
+        super().__init__(options)
+        self._init_done = False
+        self.nfixed = 0
+
+    def reset(self):
+        """Forget per-run state: counters, streaks and the latched slot
+        bounds re-derive from the engine's batch on the next setup."""
+        self._init_done = False
+        self.nfixed = 0
+
+    def _setup(self, opt):
+        from ..ops.shrink import INT_NEVER
+        fct = self.options.get("id_fix_list_fct", None)
+        if fct is not None:
+            spec = fct(opt.batch)
+        else:
+            it = int(self.options.get("shrink_fix_iters", 3))
+            spec = uniform_fix_list(
+                opt.batch, tol=float(self.options.get("shrink_fix_tol",
+                                                      1e-4)),
+                nb=it, lb=it, ub=it)
+        t, dev = opt.dtype, opt.device
+
+        def counts(a):
+            return torch.as_tensor(np.minimum(np.asarray(a, np.int64),
+                                              INT_NEVER), device=dev)
+
+        self._tol = torch.as_tensor(np.asarray(spec["tol"], np.float64),
+                                    dtype=t, device=dev)
+        self._nbc = counts(spec["nb"])
+        self._lbc = counts(spec["lb"])
+        self._ubc = counts(spec["ub"])
+        self._boundtol = float(self.options.get("boundtol", 1e-6))
+        z = torch.zeros(opt.batch.K, dtype=torch.int64, device=dev)
+        self._conv_count, self._lb_count, self._ub_count = z, z, z
+        idx = np.asarray(opt.batch.nonant_idx)
+        self._slot_lb = torch.as_tensor(np.asarray(opt.batch.lb)[:, idx],
+                                        dtype=t, device=dev)
+        self._slot_ub = torch.as_tensor(np.asarray(opt.batch.ub)[:, idx],
+                                        dtype=t, device=dev)
+        self._imask = torch.as_tensor(opt.nonant_integer_mask, device=dev)
+        self._init_done = True
+
+    def post_iter0(self, opt):
+        if not self._init_done:
+            self._setup(opt)
+
+    def miditer(self, opt):
+        from .. import obs
+        from ..ops.shrink import fixer_update
+        if not self._init_done:
+            self._setup(opt)
+        (self._conv_count, self._lb_count, self._ub_count,
+         fixed_mask, fixed_vals, n_fixed) = fixer_update(
+            self._conv_count, self._lb_count, self._ub_count,
+            opt._fixed_mask, opt._fixed_vals, opt.xbar, opt.xsqbar,
+            opt._hub_nonants(), self._slot_lb, self._slot_ub, self._tol,
+            self._boundtol, self._nbc, self._lbc, self._ubc, self._imask)
+        # the ONE host scalar of the pass; the (S, K) mask and values
+        # stay on the device (fix_nonants takes device tensors)
+        nf = int(n_fixed)
+        if nf > self.nfixed:
+            opt.fix_nonants(fixed_vals, mask=fixed_mask)
+            obs.counter_add("shrink.fixed_new", nf - self.nfixed)
+            obs.gauge_set("shrink.fixed_fraction", nf / opt.batch.K)
+            obs.event("shrink.fix", {"iter": opt._iter, "fixed": nf,
+                                     "free": opt.batch.K - nf})
+            if opt.options.get("verbose"):
+                print(f"DeviceFixer: {nf}/{opt.batch.K} nonants fixed "
+                      f"at iter {opt._iter}")
+        self.nfixed = nf
+        st = getattr(opt, "_shrink_status", None)
+        if st is not None:
+            st["fixed"], st["free"] = nf, opt.batch.K - nf
+        opt.maybe_compact(nf)
+
+    def post_everything(self, opt):
+        if self._init_done and opt.options.get("verbose"):
+            print(f"DeviceFixer: final fixed count {self.nfixed}")

@@ -16,22 +16,17 @@ Here the selection runs on the engine's device as plain torch ops:
   (``aph.gate_syncs``);
 - :func:`gather_rows` / :func:`scatter_rows`: the dispatch layout's row
   moves. Chunk pads repeat the last id and carry equal values, so a
-  scatter with duplicate indices is deterministic in value;
-- the dispatch-bucket registry with the counters
-  ``dispatch.bucket.compile`` / ``dispatch.bucket.cache_hit``. Torch
-  compiles nothing per bucket; the counters keep the JAX package's names
-  and their meaning (first sighting of a (n_chunks, chunk, S, mode)
-  shape vs a repeat), so tests and telemetry read both packages alike.
+  scatter with duplicate indices is deterministic in value.
+
+The JAX package's dispatch-bucket registry (``dispatch.bucket.*``)
+counts jit compiles per dispatch shape; torch compiles nothing per
+shape, so the port keeps no such registry. What a dispatch pass does
+hold per width is the engine's row store (core/ph ``_dispatch_store``).
 """
 
 from __future__ import annotations
 
-import hashlib
-import json
-
 import torch
-
-from .. import obs
 
 GATE_HEAD = 7   # scalar head width of both gate spellings
 
@@ -102,33 +97,3 @@ def scatter_rows(full, idx, rows):
     """``full`` with rows ``idx`` replaced by ``rows``, as a new tensor.
     Duplicate ids must carry equal rows (the chunk-pad convention)."""
     return full.index_copy(0, idx, rows)
-
-
-# shape-bucket registry (process-global, as the JAX package's mirrors
-# its jit cache): first sighting of a dispatch shape books a compile,
-# repeats book cache hits
-_BUCKET_REGISTRY: dict = {}
-
-
-def bucket_fingerprint(fields: dict) -> str:
-    """Stable 16-hex shape-bucket id (the JAX package's
-    ckpt/bundle.config_fingerprint hashing)."""
-    canon = json.dumps(fields, sort_keys=True, default=str)
-    return hashlib.sha256(canon.encode("utf-8")).hexdigest()[:16]
-
-
-def bucket_registry():
-    """Read-only view for tests and telemetry."""
-    return dict(_BUCKET_REGISTRY)
-
-
-def register_bucket(fields: dict) -> str:
-    """Book one dispatch-shape bucket use; returns the fingerprint."""
-    fp = bucket_fingerprint(fields)
-    if fp in _BUCKET_REGISTRY:
-        _BUCKET_REGISTRY[fp]["hits"] += 1
-        obs.counter_add("dispatch.bucket.cache_hit")
-    else:
-        _BUCKET_REGISTRY[fp] = {"fields": dict(fields), "hits": 0}
-        obs.counter_add("dispatch.bucket.compile")
-    return fp

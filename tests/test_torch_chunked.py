@@ -511,17 +511,29 @@ def test_unported_branches_raise(case, message):
     """Each branch that belongs to a later slice raises its own
     NotImplementedError naming ROADMAP.md; none runs another path. The
     mixed and df32 precisions run since their slice landed; asked to
-    combine with a later slice's branch (shrinking, here) they raise,
-    naming the precision. The dispatch-masked solve runs since APH
+    combine with a later slice's branch (compaction of the split-f32
+    data, A9b, here) they raise, naming the precision. Problem shrinking
+    runs since its slice landed (A9): each option builds the engine and
+    solves, compaction only with the device fixer (the JAX package's
+    ValueError otherwise). The dispatch-masked solve runs since APH
     landed: it solves only the ids given, and refuses the W/x̄ update
     (the JAX package's ValueError)."""
     opts = {"subproblem_chunk": 3}
     kw, solve_kw = {}, {}
     if case in ("mixed", "df32"):
         opts["subproblem_precision"] = case
-        opts["shrink_fix"] = True
+        opts["shrink_fix"] = opts["shrink_compact"] = True
     elif case.startswith("shrink"):
+        if case == "shrink_compact":
+            with pytest.raises(ValueError, match="needs shrink_fix"):
+                PHBase(_port_uc(), dict(opts, shrink_compact=True),
+                       device="cpu")
+            opts["shrink_fix"] = True
         opts[case] = True
+        ph = PHBase(_port_uc(), opts, device="cpu")
+        ph.solve_loop(w_on=False, prox_on=False)
+        assert ph._shrink_status is not None and ph.x is not None
+        return
     elif case == "mesh":
         kw["mesh"] = object()
     elif case == "stream":

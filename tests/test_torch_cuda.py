@@ -430,7 +430,7 @@ def test_block_on_gathered_padded_rows_matches_plain(cuda):
             device=cuda)
     ph.ph_main()
     f, data = ph._get_factors(True)
-    slices, ids_pad = ph._dispatch_slices(np.array([0, 3, 6]), 4, True)
+    slices, ids_pad = ph._dispatch_slices(np.array([0, 3, 6]), 4)
     assert ids_pad.tolist() == [0, 3, 6, 6]
     idx, real = slices[0]
     assert real == 3
@@ -523,6 +523,69 @@ def test_block_on_bundled_uc_matches_plain(cuda):
                            ph.nonant_idx, ph._fixed_mask, ph._fixed_vals,
                            None, w_on=True, prox_on=True)
     _against_plain_two_orders(f, data, q, ph._qp_states[True], False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,T,S,chunk", [(3, 6, 8, 3), (10, 24, 10, 0)],
+                         ids=["uc3x6-chunked", "uc10x24"])
+def test_block_on_compacted_uc_matches_plain(cuda, G, T, S, chunk):
+    """The block on the COMPACTED UC system (the device fixer pins about
+    three quarters of the nonant slots by iteration 4, buckets 0.5 and
+    0.75): the compacted modes run their own cuda plans, which launch,
+    and 20 kernel steps on the first compacted solve's operands and on
+    the last prox-on state match the plain version; (m_c, n_c) are not
+    multiples of the kernel's tiles."""
+    import mpisppy_tpu_torch.core.ph as ph_mod
+    from mpisppy_tpu_torch.core.ph import PH
+    from mpisppy_tpu_torch.extensions.fixer import uniform_fix_list
+    from mpisppy_tpu_torch.ir.batch import build_batch
+    from mpisppy_tpu_torch.models import uc
+
+    batch = build_batch(uc.scenario_creator, uc.make_tree(S),
+                        creator_kwargs={"num_gens": G, "num_hours": T},
+                        vector_patch=uc.scenario_vector_patch)
+    opts = dict(_UC_BLOCK_OPTS, PHIterLimit=6, shrink_fix=True,
+                shrink_compact=True, shrink_buckets="0.5,0.75",
+                id_fix_list_fct=lambda b: uniform_fix_list(
+                    b, tol=1e-2, nb=2, lb=2, ub=2, integer_only=False))
+    if chunk:
+        opts["subproblem_chunk"] = chunk
+    ph = PH(batch, opts, device=cuda)
+    first = {}
+    orig = ph_mod._solver_call
+
+    def spy(f, d, q, st, **kw):
+        if ph._shrink is not None and not first:
+            first.update(f=f, d=d, q=q, st=st)
+        return orig(f, d, q, st, **kw)
+
+    ph_mod._solver_call = spy
+    try:
+        ph.ph_main(finalize=False)
+    finally:
+        ph_mod._solver_call = orig
+    shrink = ph._shrink
+    assert shrink is not None and first
+    n_c, m_c = shrink.n_c, shrink.m_c
+    assert n_c < batch.n
+    assert n_c % admm_block.COL_TILE and m_c % admm_block.ROW_TILE
+    plan = ph._kernel_plans[True]
+    assert plan.backend == "cuda" and plan.launches > 0
+    _against_plain_two_orders(first["f"], first["d"], first["q"],
+                              first["st"], False)
+    f, data = ph._get_factors(True)
+    st = ph._chunk_states[True][0] if chunk else ph._qp_states[True]
+    rows = st.x.shape[0]
+    idx = torch.arange(rows, device=cuda)
+    asm = ph._assembly_operands(shrink)
+    q, bl, bu = ph_mod._ph_assemble(
+        data._replace(l=data.l[idx], u=data.u[idx], lb=data.lb[idx],
+                      ub=data.ub[idx]),
+        asm["c"][idx], asm["W"][idx], asm["xbar"][idx], asm["rho"][idx],
+        asm["idx"], asm["fm"][idx], asm["fv"][idx], None, w_on=True,
+        prox_on=True)
+    d = data._replace(l=data.l[idx], u=data.u[idx], lb=bl, ub=bu)
+    _against_plain_two_orders(f, d, q, st, False)
 
 
 @pytest.mark.cuda

@@ -25,7 +25,6 @@ from mpisppy_tpu_torch.core.aph import APH
 from mpisppy_tpu_torch.core.ph import PH
 from mpisppy_tpu_torch.ir.batch import build_batch
 from mpisppy_tpu_torch.models import farmer, uc
-from mpisppy_tpu_torch.ops import dispatch as dispatch_ops
 from mpisppy_tpu_torch.ops.dispatch import (GATE_HEAD, dispatch_gate,
                                             dispatch_select, gather_rows,
                                             scalar_gate, scatter_rows)
@@ -274,30 +273,54 @@ def test_frac02_solve_count_quarter_of_full_at_same_gap(mem_obs):
 
 
 def test_compile_count_tracks_dispatch_bucket_transitions(mem_obs):
-    """One bucket per dispatch shape: steady partial dispatch books ONE
-    first sighting, every further iteration a hit; a same-shape second
-    wheel books only hits; a changed width is a new bucket."""
-    dispatch_ops._BUCKET_REGISTRY.clear()
+    """What a dispatch shape costs the port (torch compiles nothing per
+    shape, so the JAX package's bucket registry has no counterpart): the
+    dispatch row store (core/ph ``_dispatch_store``) is built once for
+    a solve width, seeded from the full pass's chunk states, reused by
+    every following partial pass (a changed chunk count included), and
+    rebuilt when the width changes: after a compaction bucket
+    transition the next partial pass builds it at the compacted width,
+    and the pass after reuses it."""
     iters = 5
-    aph = _uc_aph(8, iters, dispatch_frac=0.5)
+    aph = _uc_aph(8, iters, dispatch_frac=0.5, shrink_fix=True,
+                  shrink_compact=True, shrink_buckets="0.02",
+                  id_fix_list_fct=lambda b: {
+                      "tol": np.full(b.K, 1e-4),
+                      **{k: np.full(b.K, 2 ** 30) for k in
+                         ("nb", "lb", "ub")}})
+    builds = []
+    orig = aph._dispatch_store
+
+    def spy(key, factors, data, slices):
+        before = aph._dispatch_stores.get(key)
+        st = orig(key, factors, data, slices)
+        if st is not before:
+            builds.append((aph._iter, tuple(st.x.shape)))
+        return st
+
+    aph._dispatch_store = spy
     aph.APH_main(finalize=False)
-    ctr = obs.counters_snapshot()
-    # iter 1 forced full; iters 2..5 partial at constant scnt = 4
-    assert ctr.get("dispatch.bucket.compile", 0) == 1
-    assert ctr.get("dispatch.bucket.cache_hit", 0) == iters - 2
-    reg = dispatch_ops.bucket_registry()
-    assert len(reg) == 1
-    (fp, entry), = reg.items()
-    assert entry["fields"]["n_chunks"] == 2   # ceil(4 / 2)
-    assert entry["fields"]["chunk"] == 2
-    aph_b = _uc_aph(8, iters, dispatch_frac=0.5)
-    aph_b.APH_main(finalize=False)
-    ctr2 = obs.counters_snapshot()
-    assert ctr2.get("dispatch.bucket.compile", 0) == 1
-    assert ctr2.get("dispatch.bucket.cache_hit", 0) == 2 * (iters - 1) - 1
-    aph_b.solve_loop(w_on=True, prox_on=True, update=False,
-                     dispatch=np.arange(6))   # 3 chunks, not 2
-    assert obs.counters_snapshot().get("dispatch.bucket.compile", 0) == 2
+    n = aph.batch.n
+    # iter 1 dispatches everyone; iters 2..5 partial, one store build
+    assert builds == [(2, (8, n))]
+    assert aph.extensions.nfixed == 0 and aph._shrink is None
+    aph.solve_loop(w_on=True, prox_on=True, update=False,
+                   dispatch=np.arange(6))   # 3 chunks, not 2
+    assert len(builds) == 1
+    # a width change: pin slot 0 and compact; the transition's pass
+    # dispatches everyone (as APH_main does), then two partial passes
+    mask = torch.zeros_like(aph._fixed_mask)
+    mask[:, 0] = True
+    aph.fix_nonants(aph.xbar, mask=mask)
+    assert aph.maybe_compact(1)
+    aph.solve_loop(w_on=True, prox_on=True, update=False)
+    aph.solve_loop(w_on=True, prox_on=True, update=False,
+                   dispatch=np.arange(4))
+    aph.solve_loop(w_on=True, prox_on=True, update=False,
+                   dispatch=np.arange(4, 8))
+    n_c = aph._shrink.n_c
+    assert n_c < n and builds[1:] == [(iters, (8, n_c))]
+    assert aph._dispatch_stores[True].x.shape == (8, n_c)
 
 
 # ---------------- config + CLI plumbing ----------------

@@ -300,6 +300,10 @@ def test_diagnoser_and_minmaxavg(tmp_path):
     assert len(mm.history) >= 2
 
 
+# ROADMAP.md items whose names the port now has
+_LANDED_ITEMS = {"A9"}
+
+
 @pytest.mark.parametrize("module,name,item", [
     ("mpisppy_tpu_torch.extensions.fixer", "DeviceFixer", "A9"),
     ("mpisppy_tpu_torch.extensions.norm_rho_updater",
@@ -310,8 +314,17 @@ def test_diagnoser_and_minmaxavg(tmp_path):
     ("mpisppy_tpu_torch.extensions", "WXBarReader", "A14"),
 ])
 def test_unported_extensions_raise_on_import(module, name, item):
+    """A name of a slice still to come raises on import, naming its
+    ROADMAP.md item; a name whose item has landed (A9, the shrinking
+    slice) imports as an Extension."""
     mod = importlib.import_module(module)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-        exec(f"from {module} import {name}", {})
+    if item in _LANDED_ITEMS:
+        ns = {}
+        exec(f"from {module} import {name}", ns)
+        assert issubclass(ns[name], ext.Extension)
+    else:
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP.md {item}"):
+            exec(f"from {module} import {name}", {})
     with pytest.raises(AttributeError):
         getattr(mod, "NoSuchName")
