@@ -136,6 +136,18 @@
 18. runs the port's twin of ``__graft_entry__.entry()`` (``entry_path``:
    one PH step on uc(8, 4, 6)) once on the card and checks its shapes and
    that it is finite;
+19. runs the main path's batch (shipped to the ranks as an npz) and
+   options sharded over MESH_RANKS ranks (``mesh_path``, cell
+   uc-ref-S10-mesh2: parallel/launch.launch, one ``PH(batch, options,
+   mesh=mesh).ph_main()`` per rank, each rank's hand-written block on
+   its 5-row shard of the card; NCCL with a card per rank, else gloo
+   with the ranks sharing the card, printed beside the card count);
+   checks every rank's launch count against the plan, no demotion, no
+   gate read (the unchunked loop has none), x̄ and W after prox-on
+   iteration 1 and after the run and conv against the main path's at
+   MESH_BAR, Eobjective and the trivial bound at 2e-6, and holds the
+   block against its plain version on every rank's prox-on operands;
+   rank 0 times the block at the shard's shapes while rank 1 waits;
 14. solves ``python -m mpisppy_tpu_torch uc --EF`` on the reference
    instance at EF_SCENARIOS scenarios and ``farmer --EF`` on the card
    (``ef_path``: utils/vanilla.build_batch_for and core/ef.ExtensiveForm)
@@ -143,8 +155,9 @@
    (tests/test_models.py's band: rel 2e-3, abs 2e-2) and -108390
    (rel 1e-4);
 then prints one {"kernels": [...]} line whose launches count phases 3,
-5, 10, 11, 12, 13, 15, 16 and 17 and whose max_abs_err is the largest
-of phases 4, 5, 10, 11, 12, 13, 15, 16 and 17.
+5, 10, 11, 12, 13, 15, 16, 17 and 19 (every rank's) and whose
+max_abs_err is the largest of phases 4, 5, 10, 11, 12, 13, 15, 16, 17
+and 19.
 The last line is {"ok": true, "device": {...}}; any failed check raises.
 """
 
@@ -270,9 +283,23 @@ SHRINK_EQUIV_SOLVE = {"subproblem_kernel_backend": "reference",
                       "subproblem_eps_hot": 1e-5,
                       "subproblem_eps_dua_hot": 1e-5}
 
+# the mesh path (phase 19, uc-ref-S10-mesh2): the main path's batch,
+# shipped to the ranks as an npz, and options on MESH_RANKS ranks
+# (parallel/launch): one card per rank and NCCL where the machine has
+# the cards, else the ranks share the card over gloo
+MESH_RANKS = 2
+# x̄, W and conv of the sharded run against the main path's: the CPU
+# tests' bar for the same comparison (tests/test_torch_sharding.py).
+# Every operation but the combine gives a 5-row shard's rows bit for bit
+# as at 10 rows; the combine's node tables are summed over the ranks, a
+# 4.4e-16 difference in iteration 0's x̄ that iteration 1's 1500
+# fixed-rho block steps carry to 2.2e-10 in x̄ and 1.1e-9 in W
+# (trace_mesh_gap.py; PERF.md §6)
+MESH_BAR = 1e-8
+
 # kernel vs plain (see compare): the multiple of the plain version's
-# own summation-order spread that the bar allows, and the multiple of
-# the bar that every planted fault must reach
+# own roundoff spread that the bar allows, and the multiple of the bar
+# that every planted fault must reach
 BAR_SPREAD = 4.0
 FAULT_MARGIN = 10.0
 
@@ -370,19 +397,25 @@ def _ulp_perturbed(ops):
     return out
 
 
-def compare(f, d, q, st, n_steps, label):
+def compare(f, d, q, st, n_steps, label, sink=None):
     """Kernel vs plain version on the same CUDA inputs. Returns the
-    largest absolute difference and the list of failures.
+    largest absolute difference and the list of failures; its record
+    line goes to ``sink`` (default: printed).
 
     The bar for each output is 1e-9 x max(1, |plain|) + BAR_SPREAD x the
-    spread between two summation orders of the plain version itself
-    (batched and one row at a time): f64 with another order of
-    summation, where each ADMM step multiplies a roundoff-level
-    difference in the slacks by rho (up to 100 on the equality rows of
-    UC) and the dual residual scales it by 1/(D x cost scale). The bar
-    is held to planted faults of the same inputs (the plain version one
-    step short, with alpha 1.5, without the g*yB term): each must read
-    at least FAULT_MARGIN times its bar on some output."""
+    plain version's own roundoff spread: the larger of the spread
+    between two of its summation orders (batched and one row at a time)
+    and its spread under a one-ulp perturbation of its inputs. The
+    kernel is f64 with a third order of summation, where each ADMM step
+    multiplies a roundoff-level difference in the slacks by rho (up to
+    100 on the equality rows of UC) and the dual residual scales it by
+    1/(D x cost scale); at some row counts the two plain orders happen
+    to agree more closely than either agrees with a third, and the
+    one-ulp spread measures the same amplification without depending on
+    which orders coincide. The bar is held to planted faults of the same
+    inputs (the plain version one step short, with alpha 1.5, without
+    the g*yB term): each must read at least FAULT_MARGIN times its bar
+    on some output."""
     from mpisppy_tpu_torch.ops import qp_solver as T
     from mpisppy_tpu_torch.ops.kernels import admm_block
     import torch
@@ -408,10 +441,11 @@ def compare(f, d, q, st, n_steps, label):
             failures.append(f"{label}: kernel {name} is not finite")
         diff = float((b - a).abs().max())
         spread = float((c - a).abs().max())
+        ulp_spread = float((u - a).abs().max())
         size = float(a.abs().max())
-        tol = 1e-9 * max(1.0, size) + BAR_SPREAD * spread
+        tol = 1e-9 * max(1.0, size) + BAR_SPREAD * max(spread, ulp_spread)
         rows[name] = {"diff": diff, "plain_spread": spread,
-                      "plain_ulp_spread": float((u - a).abs().max()),
+                      "plain_ulp_spread": ulp_spread,
                       "plain_max": size, "tol": tol}
         bars.append(tol)
         worst = max(worst, diff)
@@ -428,10 +462,10 @@ def compare(f, d, q, st, n_steps, label):
         if not ratios[top] >= FAULT_MARGIN:
             failures.append(f"{label}: planted fault {fault} reads only "
                             f"{ratios[top]:.3g} x the bar")
-    log(json.dumps({"check": "kernel_vs_plain", "case": label,
-                    "steps": n_steps, "l_inv_pair": l_inv,
-                    "bar_spread": BAR_SPREAD, "outputs": rows,
-                    "planted_faults": readings}))
+    (sink or log)(json.dumps({"check": "kernel_vs_plain", "case": label,
+                              "steps": n_steps, "l_inv_pair": l_inv,
+                              "bar_spread": BAR_SPREAD, "outputs": rows,
+                              "planted_faults": readings}))
     return worst, failures
 
 
@@ -556,7 +590,9 @@ def main_path(dev):
                         vector_patch=uc.scenario_vector_patch)
     t_batch = time.perf_counter() - t0
     opts = dict(PH_OPTS)
-    it_log = IterLog()
+    # x̄ and W after prox-on iteration 1: what phase 19 holds its
+    # sharded run against
+    it_log = Snapshot(at=1)
     on_card = torch.device(dev).type == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats()
@@ -616,6 +652,22 @@ def main_path(dev):
             or not bool(torch.isfinite(ph.xbar).all()):
         raise RuntimeError(f"non-finite bound or iterate: {finite}")
     return ph, launches
+
+
+def block_bound(S, m, n, steps):
+    """(bytes floor, operations floor) in ms of one ``steps``-step block
+    call on S rows: the least time for the same work is the larger.
+    A (m x n) and F (n x n) are gigabytes, far over the 50 MB L2, and
+    every step reads the previous step's result through them, so each is
+    read at least once per step; the residual tail reads A once more.
+    The vectors: scalings (6n + 2m), scaled problem vectors (3Sn + 2Sm),
+    iterates in and out (2 x (3Sn + 2Sm)), pri and dua (2S). The
+    operations are f64 at the card's f64 peak."""
+    vec_bytes = 8 * (6 * n + 2 * m + 9 * S * n + 6 * S * m + 2 * S)
+    bytes_floor = steps * 8 * (m * n + n * n) + 8 * m * n + vec_bytes
+    flops = steps * (4 * S * m * n + 2 * S * n * n) + 4 * S * m * n
+    return (bytes_floor / HBM_BYTES_PER_S * 1e3,
+            flops / F64_FLOP_PER_S * 1e3)
 
 
 def time_block(ph, steps, reps):
@@ -682,18 +734,7 @@ def time_block(ph, steps, reps):
     ms = sum(t["kernel"]) / len(t["kernel"])
     plain_ms = sum(t["plain"]) / len(t["plain"])
     lib_ms = t["library"][0]
-    # least time for the same work, the larger of two floors: the f64
-    # operations at the card's f64 peak, and the bytes. A (m x n) and F
-    # (n x n) are gigabytes, far over the 50 MB L2, and every step reads
-    # the previous step's result through them, so each is read at least
-    # once per step; the residual tail reads A once more. The vectors:
-    # scalings (6n + 2m), scaled problem vectors (3Sn + 2Sm), iterates
-    # in and out (2 x (3Sn + 2Sm)), pri and dua (2S)
-    vec_bytes = 8 * (6 * n + 2 * m + 9 * S * n + 6 * S * m + 2 * S)
-    bytes_floor = steps * 8 * (m * n + n * n) + 8 * m * n + vec_bytes
-    flops = steps * (4 * S * m * n + 2 * S * n * n) + 4 * S * m * n
-    t_bytes = bytes_floor / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F64_FLOP_PER_S * 1e3
+    t_bytes, t_ops = block_bound(S, m, n, steps)
     # what the design streams: one pass per matrix per step (2 A + F),
     # plus the tail's 2 A, at the data-sheet bandwidth (computed, not
     # measured)
@@ -2902,6 +2943,187 @@ def _shrink_equivalence(dev, batch, ph):
     return out
 
 
+class RankLog(Snapshot):
+    """Snapshot for a mesh rank: x̄ and W after prox-on iteration
+    ``at`` as every rank's rows (gathered on every rank, in step), and
+    iter 0's seconds kept, not printed (the rank's result carries
+    them)."""
+
+    def post_solve(self, ph):
+        if ph._iter == 0 and self.t is None:
+            self.iter0_s = time.perf_counter() - self.t0
+
+    def miditer(self, ph):
+        IterLog.miditer(self, ph)
+        if ph._iter == self.at:
+            self.xbar = ph.gather_rows(ph.xbar).cpu().numpy()
+            self.W = ph.gather_rows(ph.W).cpu().numpy()
+
+
+def _mesh_rank(mesh, npz, steps, reps):
+    """One rank of phase 19 (run by parallel/launch in its own process,
+    on ``mesh.device``): load the main path's batch, run PH sharded over
+    the mesh, gather x̄ and W (after prox-on iteration 1 and at the end),
+    then every rank holds the block against its plain version on its
+    prox-on operands; rank 0 then times the block on its own while the
+    other ranks wait in a collective. Returns host values."""
+    import torch
+    from mpisppy_tpu_torch import obs
+    from mpisppy_tpu_torch.core.ph import PH
+    from mpisppy_tpu_torch.ir.batch import load_batch
+    from mpisppy_tpu_torch.ops.kernels import admm_block
+    from mpisppy_tpu_torch.utils.runtime import pin_precision
+    pin_precision()
+    dev = mesh.device
+    on_card = dev.type == "cuda"     # a CPU rank only in a rehearsal
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    t0 = time.perf_counter()
+    batch = load_batch(npz)
+    t_load = time.perf_counter() - t0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    it_log = RankLog()
+    t0 = time.perf_counter()
+    ph = PH(batch, dict(PH_OPTS), mesh=mesh, extensions=it_log)
+    sync()
+    t_ship = time.perf_counter() - t0
+    obs.configure()
+    admm_block.LAUNCHES = 0
+    t0 = it_log.t0 = time.perf_counter()
+    conv, eobj, tbound = ph.ph_main()
+    sync()
+    t_main = time.perf_counter() - t0
+    launches = admm_block.LAUNCHES
+    demotions = len(obs.events("kernel.cuda_demotion"))
+    gate_syncs = obs.counters_snapshot().get("ph.gate_syncs", 0)
+    obs.shutdown()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9 if on_card \
+        else None
+    xbar = ph.gather_rows(ph.xbar).cpu().numpy()
+    W = ph.gather_rows(ph.W).cpu().numpy()
+    plans = sorted({p.backend for p in ph._kernel_plans.values()})
+    factors, data = ph._get_factors(True)
+    st = ph._qp_states[True]
+    q, _, _ = _assembled_q(ph, data)
+    # the parent prints every rank's record: two ranks writing one
+    # stdout file at once can lose a line
+    lines = []
+    err, failures = compare(factors, data, q, st, steps,
+                            f"mesh_rank{mesh.rank}", sink=lines.append)
+    S, n = st.x.shape
+    m = st.zA.shape[1]
+    timing = None
+    wait = torch.zeros(1, device=dev)
+    mesh.all_sum(wait)            # rank 0 times the block alone
+    if mesh.rank == 0 and on_card:
+        ops = block_operands(factors, data, q, st)
+
+        def kern():
+            admm_block.fused_admm_block(factors, data, q, st,
+                                        n_steps=steps,
+                                        sigma=factors.sigma, scen_tile=0)
+
+        def plain():
+            admm_block.admm_block_plain(*ops, sigma=factors.sigma,
+                                        n_steps=steps, alpha=ALPHA)
+
+        t = {"plain": [], "kernel": []}
+        for name, fn in (("plain", plain), ("kernel", kern),
+                         ("kernel", kern), ("plain", plain)):
+            t[name].append(cuda_ms(fn, reps))
+        t_bytes, t_ops = block_bound(S, m, n, steps)
+        timing = {"steps_per_call": steps, "measured_ms": t,
+                  "ms": sum(t["kernel"]) / 2, "plain_ms": sum(t["plain"]) / 2,
+                  "bound_ms": max(t_bytes, t_ops),
+                  "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    mesh.all_sum(wait)            # the other ranks wait for the timing
+    return {"rank": mesh.rank, "device": str(dev), "backend": mesh.backend,
+            "rows": S, "n": n, "m": m, "launches": launches,
+            "demotions": demotions, "gate_syncs": gate_syncs,
+            "plans": plans, "conv": conv, "eobjective": eobj,
+            "trivial_bound": tbound, "xbar": xbar, "W": W,
+            "xbar1": it_log.xbar, "W1": it_log.W,
+            "iterations": it_log.rows,
+            "iter0_s": getattr(it_log, "iter0_s", None),
+            "load_s": t_load, "ship_s": t_ship, "ph_main_s": t_main,
+            "peak_gb": peak_gb, "max_abs_err": err, "failures": failures,
+            "block_timing": timing, "log_lines": lines}
+
+
+def mesh_path(ref, npz_dir):
+    """Phase 19: the main path's batch and options sharded over
+    MESH_RANKS ranks (uc-ref-S10-mesh2), held against the main path's
+    run ``ref``. Returns (launches of every rank, the largest kernel vs
+    plain difference, failures)."""
+    import numpy as np
+    import torch
+    from mpisppy_tpu_torch.ops.kernels import admm_block
+    from mpisppy_tpu_torch.parallel.launch import choose_backend, launch
+    cards = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    outs = launch(_mesh_rank, MESH_RANKS,
+                  (os.path.join(npz_dir, "batch.npz"), 20, 3),
+                  timeout=900)
+    t_wall = time.perf_counter() - t0
+    failures = []
+    for o in outs:
+        failures += o.pop("failures")
+        for line in o.pop("log_lines"):
+            log(line)
+        solves = 1 + len(o["iterations"])
+        expected = solves * admm_block.admm_block_launches(SLICE_BUDGET,
+                                                           False)
+        tag = f"rank {o['rank']}"
+        if o["launches"] != expected or o["launches"] == 0:
+            failures.append(f"{tag}: admm_block launched {o['launches']} "
+                            f"kernels, expected {expected}")
+        if o["demotions"] or o["plans"] != ["cuda"]:
+            failures.append(f"{tag}: demotion or a non-cuda plan: "
+                            f"{o['demotions']}, {o['plans']}")
+        if o["gate_syncs"] != 0:
+            failures.append(f"{tag}: {o['gate_syncs']} gate reads on the "
+                            "unchunked loop")
+    r0 = outs[0]
+    d = {}
+    # x̄ and W after prox-on iteration 1 and after the run, held at
+    # MESH_BAR. Phase 5's chunked run equals its unchunked run bit for
+    # bit (its 16-row chunks keep the 2-row polish groups), so it holds
+    # 1e-9. The mesh's combine sums each rank's node tables, which
+    # rounds x̄ another way than one product over 10 rows (see MESH_BAR)
+    for k in ("xbar1", "W1", "xbar", "W"):
+        a, b = torch.as_tensor(ref[k]), torch.as_tensor(r0[k])
+        d[k] = _max_rel_diff(a, b)
+        for o in outs[1:]:
+            if not np.array_equal(o[k], r0[k]):
+                failures.append(f"rank {o['rank']}'s {k} differs from "
+                                "rank 0's")
+        if not d[k] <= MESH_BAR:
+            failures.append(f"mesh {k} differs from the main path's by "
+                            f"{d[k]:.3e} (bar {MESH_BAR:g})")
+    d["conv"] = abs(r0["conv"] - ref["conv"]) / max(1.0, abs(ref["conv"]))
+    if not d["conv"] <= MESH_BAR:
+        failures.append(f"mesh conv {r0['conv']} against {ref['conv']}")
+    for k in ("eobjective", "trivial_bound"):
+        d[k] = abs(r0[k] - ref[k]) / max(1.0, abs(ref[k]))
+        if not d[k] <= 2e-6:
+            failures.append(f"mesh {k} {r0[k]} against {ref[k]} "
+                            f"(rel {d[k]:.3e}, bar 2e-6)")
+    for o in outs:
+        for k in ("xbar", "W", "xbar1", "W1"):
+            del o[k]
+    log(json.dumps({"phase": "mesh_path", "cell": "uc-ref-S10-mesh2",
+                    "ranks": MESH_RANKS, "cards": cards,
+                    "backend": choose_backend(MESH_RANKS),
+                    "wall_s": t_wall, "rel_diff_vs_main_path": d,
+                    "per_rank": outs}))
+    return (sum(o["launches"] for o in outs),
+            max(o["max_abs_err"] for o in outs), failures, r0)
+
+
 def entry_path(dev):
     """Phase 18: the port's twin of __graft_entry__.entry() run once on
     the card: one PH step on uc(S=8, G=4, T=6); checks the output shapes
@@ -3098,9 +3320,26 @@ def main():
     ph, launches = main_path(dev)
     timing = time_block(ph, steps=20, reps=3)
     mark("3_4_main_path_and_timing")
+    # phase 19 holds the mesh against this run, on this batch
+    import tempfile
+    from mpisppy_tpu_torch.ir.batch import save_batch
+    ref = {"xbar": ph.xbar.cpu(), "W": ph.W.cpu(), "conv": ph.conv,
+           "xbar1": ph.extensions.xbar.cpu(), "W1": ph.extensions.W.cpu(),
+           "eobjective": ph.Eobjective_value(),
+           "trivial_bound": ph.trivial_bound}
+    npz_dir = tempfile.mkdtemp(prefix="mesh_batch_")
+    save_batch(ph.batch, os.path.join(npz_dir, "batch.npz"))
     del ph
     gc.collect()
     torch.cuda.empty_cache()
+    try:
+        mesh_launches, mesh_err, failures, _ = mesh_path(ref, npz_dir)
+    finally:
+        import shutil
+        shutil.rmtree(npz_dir, ignore_errors=True)
+    mark("19_mesh_path")
+    if failures:
+        raise RuntimeError("mesh path failed: " + "; ".join(failures))
     batch, t_batch = chunk_batch()
     scaling_ops, chunk_launches, chunk_err, native, failures = \
         chunked_path(dev, batch, t_batch)
@@ -3178,11 +3417,11 @@ def main():
         raise RuntimeError("ef path failed: " + "; ".join(failures))
     launches += chunk_launches + wheel_launches + aph_launches \
         + shard_launches + ls_launches + fw_launches + bundle_launches \
-        + shrink_launches
+        + shrink_launches + mesh_launches
     # the largest difference at any shape of the path
     timing["max_abs_err"] = max(timing["max_abs_err"], chunk_err,
                                 wheel_err, aph_err, shard_err, ls_err,
-                                fw_err, bundle_err, shrink_err)
+                                fw_err, bundle_err, shrink_err, mesh_err)
     entry = {"name": "admm_block", "route": "cuda",
              "source": "mpisppy_tpu_torch/ops/kernels/csrc/admm_block.cu",
              "replaces": "mpisppy_tpu/ops/kernels/pallas_kernel.py:100",

@@ -198,10 +198,17 @@ def make_parser() -> argparse.ArgumentParser:
                    help="device of every engine: default the CUDA "
                         "device (the run raises without one); 'cpu' "
                         "runs on the CPU")
-    # scenario-axis sharding + multi-host: not ported, the run
-    # refuses (ROADMAP.md A8)
-    p.add_argument("--mesh-devices", type=int, default=None)
-    p.add_argument("--coordinator-address", type=str, default=None)
+    # scenario-axis sharding of the ph/aph hub engine over ranks
+    # (parallel/), and the multi-process rendezvous
+    p.add_argument("--mesh-devices", type=int, default=None,
+                   help="shard the ph/aph hub engine's scenarios over "
+                        "this many ranks, one per card (0 = every "
+                        "visible card; on --device cpu, ranks are "
+                        "processes); the spokes run on rank 0")
+    p.add_argument("--coordinator-address", type=str, default=None,
+                   help="host:port of rank 0 when this process is one "
+                        "rank of a run started elsewhere (with "
+                        "--num-processes and --process-id)")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
     return p
@@ -277,8 +284,8 @@ def config_from_args(args) -> RunConfig:
 
 def run(cfg: RunConfig):
     from . import obs
-    from .utils.sputils import spin_the_wheel
-    from .utils.vanilla import refuse_unported, wheel_dicts
+    from .utils.sputils import spin_the_wheel, wheel_result, wheel_on_mesh
+    from .utils.vanilla import mesh_ranks, refuse_unported, wheel_dicts
 
     refuse_unported(cfg)
     # a telemetry session only when one is asked for (the port's
@@ -293,14 +300,24 @@ def run(cfg: RunConfig):
         obj, _ = ef.solve_extensive_form(integer=cfg.ef_integer)
         global_toc(f"EF objective: {obj:.4f}")
         result = {"ef_objective": obj}
+    elif cfg.coordinator is not None:
+        # this process is one rank of a run started elsewhere
+        from .parallel.mesh import make_mesh
+        from .utils.runtime import maybe_init_distributed
+        maybe_init_distributed(cfg.coordinator)
+        device = "cpu" if str(cfg.device or "").startswith("cpu") \
+            else None
+        result = wheel_on_mesh(make_mesh(device=device), cfg)
+    elif mesh_ranks(cfg) > 1:
+        # start the ranks here: rank 0 runs the wheel, the others follow
+        # its hub loop (utils/sputils.spin_the_wheel)
+        from .parallel.launch import launch
+        device = "cpu" if str(cfg.device or "").startswith("cpu") \
+            else None
+        result = launch(wheel_on_mesh, mesh_ranks(cfg, warn=False),
+                        (cfg,), device=device)[0]
     else:
-        hub_d, spoke_ds = wheel_dicts(cfg)
-        wheel = spin_the_wheel(hub_d, spoke_ds)
-        # never-established bounds report as null, not JSON-invalid
-        # Infinity
-        result = {
-            "outer_bound": obs.finite_or_none(wheel.hub.BestOuterBound),
-            "inner_bound": obs.finite_or_none(wheel.best_inner_bound)}
+        result = wheel_result(spin_the_wheel(*wheel_dicts(cfg)))
     obs.event("run.result", result)
     return result
 
@@ -314,7 +331,8 @@ def main(argv=None):
             f"ROADMAP.md {item})")
     args = make_parser().parse_args(argv)
     result = run(config_from_args(args))
-    print(json.dumps(result))
+    if result is not None:       # None: a follower rank of a mesh
+        print(json.dumps(result))
     return 0
 
 

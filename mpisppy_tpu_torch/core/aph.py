@@ -77,19 +77,26 @@ def aph_conv_metric(pusq, pvsq, pwsq, pzsq):
         torch.full_like(pusq, torch.inf))
 
 
-def _aph_update(xn, W, y, z, rho, prob, xbar, ybar, nu, gamma, iter1: bool):
+def _aph_update(xn, W, y, z, rho, prob, xbar, ybar, nu, gamma, iter1: bool,
+                reduce_sum=None):
     """The projective-hedging update: the side-gig quantities, the
     θ-step, convergence and the post-step φ per scenario. xbar/ybar are
-    the FirstReduce results (membership matmuls)."""
+    the FirstReduce results. On a sharded mesh ``reduce_sum`` sums a
+    stack of partial scalars over the ranks: the SecondReduce, once for
+    (‖u‖²_p, ‖ȳ‖²_p, φ) before the θ-step and once for the norms of the
+    stepped (W, z)."""
+    red = reduce_sum if reduce_sum is not None else (lambda t: t)
     u = xn - xbar                                     # (S, K)
-    pusq = torch.dot(prob, torch.sum(u * u, dim=1))
-    pvsq = torch.dot(prob, torch.sum(ybar * ybar, dim=1))
+    pusq, pvsq, phi = red(torch.stack([
+        torch.dot(prob, torch.sum(u * u, dim=1)),
+        torch.dot(prob, torch.sum(ybar * ybar, dim=1)),
+        torch.dot(prob, torch.sum((z - xn) * (W - y), dim=1))]))
     tau = pusq + pvsq / gamma
-    phi = torch.dot(prob, torch.sum((z - xn) * (W - y), dim=1))
     W_new, z_new, theta = aph_theta_step(u, ybar, W, z, xbar, tau, phi,
                                          nu, gamma, iter1)
-    pwsq = torch.dot(prob, torch.sum(W_new * W_new, dim=1))
-    pzsq = torch.dot(prob, torch.sum(z_new * z_new, dim=1))
+    pwsq, pzsq = red(torch.stack([
+        torch.dot(prob, torch.sum(W_new * W_new, dim=1)),
+        torch.dot(prob, torch.sum(z_new * z_new, dim=1))]))
     conv = aph_conv_metric(pusq, pvsq, pwsq, pzsq)
     # post-step per-scenario phis drive dispatch (ref. aph.py:755)
     phis = prob * torch.sum((z_new - xn) * (W_new - y), dim=1)
@@ -116,7 +123,9 @@ class APH(PHBase):
         # phis lives on the device between iterations (the selection
         # reads it there); tests and APHShard may assign host arrays
         self.phis = np.zeros(S)
-        self._last_dispatch = np.zeros(S, np.int64)
+        # indexed by GLOBAL scenario: on a sharded mesh every rank ranks
+        # the whole φ vector, so each holds every rank's dispatch ages
+        self._last_dispatch = np.zeros(self.global_batch.S, np.int64)
         self._dispatched = np.ones(S, bool)   # iter 0 solves everyone
         self.theta = 0.0
         self.tau = self.phi = 0.0
@@ -143,8 +152,11 @@ class APH(PHBase):
 
     def _dispatch_capable(self):
         """True when partial dispatch can SKIP solves: the chunked loop
-        with a shared A (the port has no mesh). Other engines keep
+        with a shared A, unsharded. Other engines, a sharded one
+        included (its ranks' solve passes must stay in step), keep
         masked acceptance."""
+        if self._shard_ops is not None:
+            return False
         chunk = int(self.options.get("subproblem_chunk", 0) or 0)
         return 0 < chunk < self.batch.S \
             and getattr(self.qp_data.A, "ndim", 0) == 2
@@ -187,7 +199,8 @@ class APH(PHBase):
             # NEXT solve (ref. aph.py:671-683 _update_foropt)
             self._W_lag = torch.where(m, self.W, self._W_lag)
             self._z_lag = torch.where(m, self.z, self._z_lag)
-        self._last_dispatch[mask] = self._iter
+        self._last_dispatch[self._row0:self._row0 + mask.size][mask] = \
+            self._iter
         self._dispatched = mask
 
     # ---- main loop (ref. aph.py:704-815 APH_iterk, :818 APH_main) ----
@@ -218,6 +231,13 @@ class APH(PHBase):
 
         nu, gamma = self.nu, self.gamma
         S, S_real = self.batch.S, self._S_orig
+        # a sharded mesh: the SecondReduce scalars are summed over the
+        # ranks, and the dispatch ranks the GLOBAL φ (every rank's rows
+        # in one zero-buffer all-reduce); each rank keeps its rows of
+        # the mask, and the gate stays one read per iteration
+        sh = self._shard_ops
+        red = None if sh is None else self.mesh.all_sum
+        lo = self._row0
         for it in range(1, self.max_iterations + 1):
             self._iter = it
             t_it = _time.perf_counter()
@@ -238,9 +258,10 @@ class APH(PHBase):
             (self.W, self.z, tau, phi, theta, conv, phis,
              pusq, pvsq, pwsq, pzsq) = _aph_update(
                 xn, self.W, self.y_aph, self.z, self.rho, self.prob,
-                xbar, ybar, nu, gamma, iter1=(it == 1))
+                xbar, ybar, nu, gamma, iter1=(it == 1), reduce_sum=red)
             self.xbar, self.xsqbar, self.ybar = xbar, xsqbar, ybar
             self.phis = phis
+            phis_all = phis if sh is None else self.gather_rows(phis)
             # dispatch (frac 1 at iter 1 "to get a decent w for
             # everyone", ref. aph.py:783-786); the selection rides the
             # same packed gate as the projective scalars
@@ -248,10 +269,10 @@ class APH(PHBase):
             scnt = max(1, int(np.ceil(S_real * frac)))
             full = scnt >= S_real
             if full:
-                gate = scalar_gate(tau, phi, theta, conv, phis, S_real)
+                gate = scalar_gate(tau, phi, theta, conv, phis_all, S_real)
             else:
                 gate = dispatch_gate(
-                    tau, phi, theta, conv, phis,
+                    tau, phi, theta, conv, phis_all,
                     torch.as_tensor(self._last_dispatch,
                                     device=self.device), scnt, S_real)
             # THE one device-to-host read of the iteration
@@ -262,10 +283,10 @@ class APH(PHBase):
             self._phi_stats = {"phi_min": phi_min, "phi_max": phi_max,
                                "phi_neg": int(phi_neg)}
             if full:
-                mask = np.zeros(S, bool)
-                mask[:S_real] = True
+                gmask = np.arange(self._last_dispatch.size) < S_real
             else:
-                mask = g[GATE_HEAD:] != 0
+                gmask = g[GATE_HEAD:] != 0
+            mask = gmask[lo:lo + S]
 
             if self.verbose and (it % 10 == 0 or it == 1):
                 global_toc(f"APH iter {it}: conv={self.conv:.6e} "
@@ -294,16 +315,19 @@ class APH(PHBase):
                 # 1's warm-up rule) so the duals re-materialize at the
                 # new width; partial dispatch resumes next iteration
                 full = True
-                mask = np.zeros(S, bool)
-                mask[:S_real] = True
+                gmask = np.arange(self._last_dispatch.size) < S_real
+                mask = gmask[lo:lo + S]
             self._aph_shrink_bucket = cur_bucket
             didx = None
             if not full and self._dispatch_capable():
                 didx = np.flatnonzero(mask)
             self._aph_solve(mask, didx=didx)
+            if sh is not None:
+                # the other ranks' rows of the dispatch ages
+                self._last_dispatch[gmask] = it
             self._aph_status = {
                 "frac": frac, "scnt": scnt, "S_real": S_real,
-                "dispatched": int(mask.sum()),
+                "dispatched": int(gmask.sum()),
                 "solve_path": "chunked-skip" if didx is not None
                 else ("full" if full else "masked-accept"),
                 **(self._phi_stats or {})}

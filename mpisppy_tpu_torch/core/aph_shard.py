@@ -504,10 +504,12 @@ def spin_aph_shard_wheel(cfg, n_shards: int, join_timeout=600.0,
 
     from ..utils.multiproc import (reap, spawn_spoke_processes,
                                    wait_spoke_hellos)
-    from ..utils.vanilla import refuse_unported
+    from ..utils.vanilla import _not_ported, mesh_ranks, refuse_unported
 
     cfg.validate()
     refuse_unported(cfg)
+    if mesh_ranks(cfg, warn=False) > 1:
+        raise _not_ported("a scenario mesh in the process wheels", "A8b")
     if cfg.hub != "aph":
         raise ValueError(f"the sharded APH wheel needs hub='aph', not "
                          f"{cfg.hub!r}")

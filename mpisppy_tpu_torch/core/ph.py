@@ -48,12 +48,13 @@ import torch
 from .. import global_toc, obs
 from ..ir.batch import ScenarioBatch
 from ..ops.qp_solver import (QPData, ScaledView, SplitMatrix,
-                             qp_cold_state, qp_dual_objective,
+                             mesh_scope, qp_cold_state, qp_dual_objective,
                              qp_objective, qp_reset_rho, qp_setup,
                              qp_setup_like, qp_solve_mixed,
                              qp_solve_segmented, stacked_residuals)
+from ..parallel.mesh import scenario_combine
 from ..utils.runtime import to_host
-from .spbase import SPBase, batch_cache, compute_xbar
+from .spbase import SPBase, batch_cache
 
 _log = logging.getLogger("mpisppy_tpu_torch.ph")
 
@@ -110,26 +111,27 @@ def _ph_chunk_objs(x, yA, yB, d, q, c, c0, P0, idx, W, *, w_on):
 
 
 def _ph_combine(xn, prob, xbar_w, memberships, W, rho, wmask, *,
-                slot_slices):
-    """Compute_Xbar + Update_W + convergence over the nonant block."""
-    K = xn.shape[1]
-    xbar_new = compute_xbar(memberships, slot_slices, xbar_w, xn)
-    xsqbar_new = compute_xbar(memberships, slot_slices, xbar_w, xn * xn)
-    W_new = W + rho * (xn - xbar_new)
-    if wmask is not None:
-        W_new = torch.where(wmask, W_new, 0.0)
-    conv = torch.dot(prob, torch.sum(torch.abs(xn - xbar_new), dim=1)) / K
-    return xbar_new, xsqbar_new, W_new, conv
+                slot_slices, shard_ops=None):
+    """Compute_Xbar + Update_W + convergence over the nonant block
+    (parallel/mesh.scenario_combine); on a sharded mesh ``shard_ops``
+    supplies the mesh, whose ranks sum the node tables and the
+    convergence (one all-reduce each)."""
+    mesh = None
+    if shard_ops is not None:
+        shard_ops.book_collective(xn.dtype, full=True)
+        mesh = shard_ops.mesh
+    return scenario_combine(memberships, slot_slices, xn, prob, xbar_w, W,
+                            rho, wmask, mesh)
 
 
 def _ph_reduce(x, yA, yB, d, q, c, c0, P0, prob, xbar_w, memberships, idx,
-               W, rho, wmask, *, w_on, slot_slices):
+               W, rho, wmask, *, w_on, slot_slices, shard_ops=None):
     """Stage 3: the composition of _ph_chunk_objs and _ph_combine."""
     xn, base_obj, solved_obj, dual_obj = _ph_chunk_objs(
         x, yA, yB, d, q, c, c0, P0, idx, W, w_on=w_on)
     xbar_new, xsqbar_new, W_new, conv = _ph_combine(
         xn, prob, xbar_w, memberships, W, rho, wmask,
-        slot_slices=slot_slices)
+        slot_slices=slot_slices, shard_ops=shard_ops)
     return xn, xbar_new, xsqbar_new, W_new, conv, base_obj, solved_obj, \
         dual_obj
 
@@ -238,7 +240,7 @@ def _ph_step(qp_state, factors, data, c, c0, P0, prob, xbar_w, memberships,
              polish_chunk, precision="native", tail_iter=1000,
              sub_eps_hot=None, sub_eps_dua_hot=None, stall_rel=0.0,
              segment=500, polish_hot=True, segment_lo=None, ir_sweeps=1,
-             lap=None, kernel=None):
+             lap=None, kernel=None, shard_ops=None):
     """The PH iteration: assemble, batched solve, reduce."""
     q, bl, bu = _ph_assemble(data, c, W, xbar, rho, idx, fixed_mask,
                              fixed_vals, wscale, w_on=w_on,
@@ -261,7 +263,7 @@ def _ph_step(qp_state, factors, data, c, c0, P0, prob, xbar_w, memberships,
     (xn, xbar_new, xsqbar_new, W_new, conv, base_obj, solved_obj,
      dual_obj) = _ph_reduce(x, yA, yB, d, q, c, c0, P0, prob, xbar_w,
                             memberships, idx, W, rho, wmask, w_on=w_on,
-                            slot_slices=slot_slices)
+                            slot_slices=slot_slices, shard_ops=shard_ops)
     if lap is not None:
         lap("reduce")
     return qp_state, x, yA, yB, xn, xbar_new, xsqbar_new, W_new, \
@@ -309,9 +311,7 @@ class PHBase(SPBase):
     def __init__(self, batch: ScenarioBatch, options=None, rho_setter=None,
                  extensions=None, converger=None, dtype=None, device=None,
                  mesh=None):
-        if mesh is not None:
-            raise _not_ported("the scenario-axis device mesh")
-        super().__init__(batch, options, dtype, device=device)
+        super().__init__(batch, options, dtype, device=device, mesh=mesh)
         opts = self.options
         self.rho_default = float(opts.get("defaultPHrho", 1.0))
         self.max_iterations = int(opts.get("PHIterLimit", 100))
@@ -393,7 +393,8 @@ class PHBase(SPBase):
         self.converger_cls = converger
         self.converger = None
 
-        S, K = batch.S, batch.K
+        # this rank's rows on a mesh (self.batch is the shard)
+        S, K = self.batch.S, self.batch.K
         t, dev = self.dtype, self.device
         if rho_setter is not None:
             rho0 = np.broadcast_to(np.asarray(rho_setter(batch),
@@ -512,7 +513,7 @@ class PHBase(SPBase):
             # shared-structure batch: the prox diagonal stays shared for
             # the single-factor form whenever rho is uniform across
             # scenarios (the default; rho setters are per slot)
-            if bool((self.rho == self.rho[:1]).all()):
+            if self._rho_uniform():
                 return d._replace(P_diag=d.P_diag.index_add(0, idx,
                                                             self.rho[0]))
             # per-scenario rho: the batched (S, m, n) representation
@@ -527,6 +528,21 @@ class PHBase(SPBase):
             P = d.P_diag.expand(S, -1).index_add(1, idx, self.rho)
             return d._replace(P_diag=P, A=d.A.expand((S,) + d.A.shape))
         return d._replace(P_diag=d.P_diag.index_add(1, idx, self.rho))
+
+    def _rho_uniform(self) -> bool:
+        """Whether every scenario carries the same rho row (on a mesh:
+        every row of every rank)."""
+        same = (self.rho == self.rho[:1]).all()
+        if self._shard_ops is None:
+            return bool(same)
+        r0 = self.rho[0]
+        same = same & (self.mesh.all_max(r0) == self.mesh.all_min(r0)).all()
+        return self._all_ranks(same)
+
+    def _scope(self):
+        """The qp_solver mesh scope of this engine's solves and setups
+        (a no-op without a sharded mesh)."""
+        return mesh_scope(self.shard_mesh)
 
     def _get_factors(self, prox_on: bool, fixed: bool = False,
                      full: bool = False):
@@ -554,6 +570,11 @@ class PHBase(SPBase):
         for; the engine's raw split A is swapped for a ScaledView over
         the scaled one, so the raw pair frees. The cached tensors are
         never written in place."""
+        with self._scope():
+            return self._get_factors_impl(prox_on, fixed, full)
+
+    def _get_factors_impl(self, prox_on, fixed, full):
+        """The body of _get_factors."""
         if not fixed and not full and self._shrink is not None:
             return self._shrink_get_factors(prox_on)
         key = ("fixed", bool(prox_on)) if fixed else bool(prox_on)
@@ -720,7 +741,10 @@ class PHBase(SPBase):
         if not bool(self.options.get("shrink_compact")):
             return False
         if nfixed is None:
-            nfixed = int(self._fixed_mask.all(dim=0).sum())
+            fixed = self._fixed_mask.all(dim=0)
+            if self._shard_ops is not None:
+                fixed = self.mesh.all_min(fixed.to(torch.uint8)).bool()
+            nfixed = int(fixed.sum())
         st = self._shrink_status
         if st is not None:
             st["fixed"], st["free"] = int(nfixed), \
@@ -738,7 +762,10 @@ class PHBase(SPBase):
         from ..ops import shrink as shrink_ops
         plan = shrink_ops.build_plan(
             self.qp_data, self.c, self.c0, self.nonant_idx,
-            self._fixed_mask, self._fixed_vals, target, dtype=self.dtype)
+            self._fixed_mask, self._fixed_vals, target, dtype=self.dtype,
+            mesh=self.shard_mesh)
+        if self._shard_ops is not None:
+            self._assert_same_plan(plan)
         if plan is None:
             self._shrink_failed.add(target)
             obs.counter_add("shrink.compaction_skipped")
@@ -769,6 +796,25 @@ class PHBase(SPBase):
             f"rows ({plan.n_fixed_slots} nonants folded out)",
             bucket=plan.bucket, n_cols=plan.n_c, m_rows=plan.m_c)
         return True
+
+    def _assert_same_plan(self, plan):
+        """On a sharded mesh every rank must compact to the same system
+        (the fixer reads the global x̄, and the kept rows are reduced
+        over the ranks): all-reduce a checksum of the plan's index sets
+        and raise on every rank when any rank's differs."""
+        if plan is None:
+            parts = [-1.0, 0.0, 0.0]
+        else:
+            w = lambda a: float(np.dot(np.asarray(a, np.float64),  # noqa
+                                       np.arange(1, len(a) + 1)))
+            parts = [float(plan.n_c), w(plan.keep_cols_np),
+                     w(plan.keep_rows_np) + w(plan.fixed_slots)]
+        v = torch.tensor(parts, dtype=torch.float64, device=self.device)
+        if not bool((self.mesh.all_max(v) == self.mesh.all_min(v)).all()):
+            raise RuntimeError(
+                "ranks built different compaction plans (the plan "
+                "checksums differ across the mesh)")
+        self._plan_checksum = parts
 
     def _compact_invalidate(self):
         """A bucket transition changes every hot-loop solve shape: drop
@@ -1121,10 +1167,42 @@ class PHBase(SPBase):
         solution, duals, warm state and objectives carry forward
         unchanged. Chunked loop only, and without the W/x̄ update (the
         caller owns the reduction over a partial solve)."""
+        with self._scope():
+            return self._solve_loop(w_on, prox_on, update, fixed, dispatch)
+
+    def _mode_entry(self, skey):
+        """The phase-timing record of one mode key: "sharded" over the
+        mesh's ranks, else "host" on one device."""
+        return self._phase_times.setdefault(
+            skey, {"acc": {"assemble": 0.0, "solve": 0.0, "gate": 0.0,
+                           "reduce": 0.0},
+                   "calls": 0, "gate_syncs": 0,
+                   "devices": 1 if self._shard_ops is None
+                   else self._shard_ops.n_devices,
+                   "mode": "host" if self._shard_ops is None
+                   else "sharded"})
+
+    def _local_chunk(self, chunk):
+        """The chunk rows of the chunked loop: ``subproblem_chunk``, or
+        on a sharded mesh the per-rank chunk rounded so every chunk is
+        a full local slice of every shard (core/spbase pads S from the
+        same parallel/mesh.local_chunk_layout, so it divides the
+        shard)."""
+        if self._shard_ops is None:
+            return chunk
+        from ..parallel.mesh import local_chunk_layout
+        return local_chunk_layout(self._shard_ops.shard_size, chunk)[1]
+
+    def _solve_loop(self, w_on, prox_on, update, fixed, dispatch):
         obs.counter_add("ph.solve_loop_calls")
         chunk = int(self.options.get("subproblem_chunk", 0) or 0)
+        # on a mesh, ``subproblem_chunk`` bounds the PER-RANK microbatch
         chunked = 0 < chunk < self.batch.S
         if dispatch is not None:
+            if self._shard_ops is not None:
+                raise ValueError(
+                    "dispatch-masked solves run unsharded; a sharded "
+                    "APH uses masked acceptance")
             if not chunked:
                 raise ValueError(
                     "dispatch-masked solves require the chunked loop "
@@ -1136,16 +1214,13 @@ class PHBase(SPBase):
                     "update: the reduction would mix fresh and stale "
                     "rows (APH owns its own reduce)")
         if chunked:
-            return self._solve_loop_chunked(chunk, w_on, prox_on, update,
-                                            fixed, dispatch=dispatch)
+            return self._solve_loop_chunked(
+                self._local_chunk(chunk), w_on, prox_on, update, fixed,
+                dispatch=dispatch)
         qp_state = self._ensure_state(prox_on, fixed)
         factors, data = self._get_factors(prox_on, fixed)
         skey = ("fixed", bool(prox_on)) if fixed else bool(prox_on)
-        ent = self._phase_times.setdefault(
-            skey, {"acc": {"assemble": 0.0, "solve": 0.0, "gate": 0.0,
-                           "reduce": 0.0},
-                   "calls": 0, "gate_syncs": 0, "devices": 1,
-                   "mode": "host"})
+        ent = self._mode_entry(skey)
         ent["calls"] += 1
         plan = self._kernel_plan(skey, factors)
         ent["kernel"] = plan.descriptor()
@@ -1177,7 +1252,7 @@ class PHBase(SPBase):
             stall_rel=self.sub_stall_rel, segment=self.sub_segment,
             polish_hot=self.sub_polish_hot,
             segment_lo=self.sub_segment_lo, ir_sweeps=self.sub_ir_sweeps,
-            lap=_lap, kernel=plan)
+            lap=_lap, kernel=plan, shard_ops=self._shard_ops)
         self._qp_states[skey] = qp_state
         self.x, self.yA, self.yB = x, yA, yB
         if update:
@@ -1212,7 +1287,7 @@ class PHBase(SPBase):
     def _shrink_step(self, qp_state, factors, data, c, c0, P0, prob,
                      xbar_w, memberships, idx, W, xbar, rho, fixed_mask,
                      fixed_vals, wscale, *, w_on, prox_on, slot_slices,
-                     lap, kernel, **solve_kw):
+                     lap, kernel, shard_ops=None, **solve_kw):
         """_ph_step on the compacted system (the arguments are
         _ph_step's): assemble on the free-slot blocks, solve the
         compacted system, expand, then reduce on the FULL blocks, so
@@ -1241,7 +1316,7 @@ class PHBase(SPBase):
         wmask = None if wscale is None else wscale > 0
         xbar_new, xsqbar_new, W_new, conv = _ph_combine(
             xn, prob, xbar_w, memberships, W, rho, wmask,
-            slot_slices=slot_slices)
+            slot_slices=slot_slices, shard_ops=shard_ops)
         lap("reduce")
         return qp_state, x, yA, yB, xn, xbar_new, xsqbar_new, W_new, \
             conv, base_obj, solved_obj, dual_obj
@@ -1309,11 +1384,7 @@ class PHBase(SPBase):
                   segment_lo=self.sub_segment_lo,
                   ir_sweeps=self.sub_ir_sweeps, kernel=plan)
         pipeline = bool(int(self.options.get("subproblem_pipeline", 1)))
-        ent = self._phase_times.setdefault(
-            key, {"acc": {"assemble": 0.0, "solve": 0.0, "gate": 0.0,
-                          "reduce": 0.0},
-                  "calls": 0, "gate_syncs": 0, "devices": 1,
-                  "mode": "host"})
+        ent = self._mode_entry(key)
         acc = ent["acc"]
         ent["calls"] += 1
         ent["kernel"] = plan.descriptor()
@@ -1386,7 +1457,7 @@ class PHBase(SPBase):
                 obs.complete_span(
                     "ph.solve.chunk", t_c, _time.perf_counter(),
                     cat="ph", args={"chunk": ci, "mode": sp_args["mode"],
-                                    "devices": 1})
+                                    "devices": ent["devices"]})
             prev_st = st
             if split_mode:
                 # record a STRIPPED state: each chunk's factor kept until
@@ -1412,16 +1483,29 @@ class PHBase(SPBase):
         # THE GATE: every recovery/hospital/standing decision below
         # reads this host copy of every chunk's pri_rel (kept current by
         # the retries and the hospital)
-        if pipeline:
-            pri_host = stacked_residuals(
-                [rec[0] for rec in solved_chunks]).cpu().numpy().copy()
+        # On a sharded mesh the gate is every rank's rows, gathered by
+        # one all-reduce before the ONE read: ``pri_glob`` (ranks,
+        # chunks, rows) is the same on every rank, so every rank takes
+        # the same retry and hospital decisions; ``pri_host`` is this
+        # rank's plane of it (a view: writes land in both)
+        sh = self._shard_ops
+        if pipeline or sh is not None:
+            pri_dev = stacked_residuals([rec[0] for rec in solved_chunks])
+            if sh is not None:
+                pri_dev = self.mesh.gather_rows(pri_dev.unsqueeze(0),
+                                                sh.n_devices)
+            pri_glob = pri_dev.cpu().numpy().copy()
+            if sh is None:
+                pri_glob = pri_glob[None]
             gate_syncs += 1
         else:
-            pri_host = np.stack([rec[0].pri_rel.cpu().numpy()
-                                 for rec in solved_chunks])
+            pri_glob = np.stack([rec[0].pri_rel.cpu().numpy()
+                                 for rec in solved_chunks])[None]
             gate_syncs += len(solved_chunks)
+        me = 0 if sh is None else self.mesh.rank
+        pri_host = pri_glob[me]
         if obs.enabled():
-            obs.counter_add("xfer.d2h_bytes", pri_host.nbytes)
+            obs.counter_add("xfer.d2h_bytes", pri_glob.nbytes)
         # blacklist re-admission every ``readmit`` solves of this mode
         readmit = int(self.options.get("subproblem_blacklist_readmit", 16))
         calls = self._blacklist_calls[key] = \
@@ -1441,7 +1525,7 @@ class PHBase(SPBase):
                 f"(every {readmit} solves)", count=nb, every=readmit)
         no_retry = self._chunk_no_retry.setdefault(key, set())
         for ci, rec in enumerate(solved_chunks):
-            m = float(pri_host[ci].max())
+            m = float(pri_glob[:, ci].max())
             is_nan = not np.isfinite(m)
             # the blacklist stops repeated retries of a hard chunk, but
             # NaN iterates are always replaced: stored, they would
@@ -1463,7 +1547,10 @@ class PHBase(SPBase):
                                          + 4 * kw["tail_iter"], 1500))
             st2, x2, yA2, yB2 = _solver_call(fac_c, d_r, q_r, st_r,
                                              **kw_r)
-            pri2 = st2.pri_rel.cpu().numpy()   # the retry's own sync
+            # the retry's own sync (every rank's rows of the chunk)
+            pri2 = st2.pri_rel if sh is None else self.mesh.gather_rows(
+                st2.pri_rel.unsqueeze(0), sh.n_devices)
+            pri2 = pri2.cpu().numpy().reshape(pri_glob[:, ci].shape)
             gate_syncs += 1
             if obs.enabled():
                 obs.counter_add("xfer.d2h_bytes", pri2.nbytes)
@@ -1478,12 +1565,12 @@ class PHBase(SPBase):
                 st_r = st_r._replace(L=None)
             if np.isfinite(m2) and (is_nan or m2 < m):
                 rec[:4] = [st2, x2, yA2, yB2]
-                pri_host[ci] = pri2
+                pri_glob[:, ci] = pri2
             elif is_nan:
                 # both attempts NaN: keep the clean cold state so the
                 # next iteration starts from finite values
                 rec[:4] = [st_r, st_r.x, st_r.yA, st_r.yB]
-                pri_host[ci] = np.inf
+                pri_glob[:, ci] = np.inf
             if not (m2 <= thr):
                 no_retry.add(ci)
         # pass 2b — the scenario hospital. Not for split data: its
@@ -1495,7 +1582,7 @@ class PHBase(SPBase):
             gate_syncs += self._hospitalize(key, slices, solved_chunks,
                                             data, thr, bool(w_on),
                                             bool(prox_on), kw,
-                                            pri_host=pri_host,
+                                            pri_glob=pri_glob,
                                             shrink=shrink)
         # standing casualties: rows still above the gate enter x̄/W with
         # their loose solutions this iteration; say so when anything
@@ -1506,7 +1593,7 @@ class PHBase(SPBase):
                 pr = pri_host[ci][:real]
                 bad = np.flatnonzero(~(pr <= thr))
                 if bad.size:
-                    ids = idx_c.tolist()
+                    ids = [self._row0 + i for i in idx_c.tolist()]
                     standing += [(ids[r], float(pr[r])) for r in bad
                                  if ids[r] < self._S_orig]
             if standing:
@@ -1604,7 +1691,7 @@ class PHBase(SPBase):
             xbar_new, xsqbar_new, W_new, conv = _ph_combine(
                 cat["xn"], self.prob, self.xbar_weights,
                 tuple(self.memberships), self.W, self.rho, wmask,
-                slot_slices=self.slot_bounds)
+                slot_slices=self.slot_bounds, shard_ops=self._shard_ops)
             self.xbar, self.xsqbar = xbar_new, xsqbar_new
             self.W_new = W_new
             # the per-iteration convergence scalar: the one designed sync
@@ -1618,7 +1705,7 @@ class PHBase(SPBase):
         return cat["solved"]
 
     def _hospitalize(self, key, slices, solved_chunks, data, thr, w_on,
-                     prox_on, kw, pri_host=None, shrink=None):
+                     prox_on, kw, pri_glob=None, shrink=None):
         """Per-scenario rescue solves for chunked-mode stragglers. The
         shared factor's scaling and rho patterns are computed against
         the reference cost c while PH solves q = c + (W − ρx̄); for an
@@ -1632,79 +1719,116 @@ class PHBase(SPBase):
         which live in another scaling. A scenario the hospital does not
         cure is not treated again until re-admission.
 
-        ``pri_host``: the gate's (n_chunks, chunk) host residual matrix;
-        cured rows are written back into it. Under a shrink plan
-        (``shrink``) ``data`` is the compacted system and the rescue
-        assembles from the compacted cost and the free-slot hub blocks,
-        so it solves the system the chunks solve and its rows scatter
-        back at the compacted width. Returns the number of host
-        transfers made (0 or 1)."""
+        ``pri_glob``: the gate's (ranks, n_chunks, chunk) host residual
+        array (one rank without a sharded mesh); cured rows are written
+        back into it. On a sharded mesh the picks come from every rank's
+        rows, each rank assembles the rows it owns (with their rows of P
+        and A where those are per scenario) into zero buffers that one
+        all-reduce fills, and every rank solves the same rescue batch
+        locally (no collective inside the solve) and keeps its own rows. Under a shrink plan (``shrink``) ``data`` is the compacted
+        system and the rescue assembles from the compacted cost and the
+        free-slot hub blocks, so it solves the system the chunks solve
+        and its rows scatter back at the compacted width. Returns the
+        number of host transfers made (0 or 1)."""
         cap = int(self.options.get("subproblem_hospital_max", 4))
         failed = self._hospital_no_retry.setdefault(key, set())
-        picks = []                      # (chunk, row, scenario, pri_rel)
+        sh = self._shard_ops
+        L = self.batch.S
+        me = 0 if sh is None else self.mesh.rank
+        picks = []               # (chunk, rank, row, scenario, pri_rel)
         for ci, (idx_c, real) in enumerate(slices):
-            pr = (solved_chunks[ci][0].pri_rel.cpu().numpy()
-                  if pri_host is None else pri_host[ci])[:real]
-            bad = np.flatnonzero(~(pr <= thr))
-            if not bad.size:
-                continue
             ids = idx_c.tolist()
-            for r in bad:
-                # keyed by GLOBAL scenario id: chunk-local coordinates
-                # would re-target other scenarios if the chunk changed
-                g = ids[r]
-                if g not in failed and g < self._S_orig:
-                    picks.append((ci, int(r), g, float(pr[r])))
+            for d in range(1 if sh is None else sh.n_devices):
+                pr = (solved_chunks[ci][0].pri_rel.cpu().numpy()
+                      if pri_glob is None else pri_glob[d, ci])[:real]
+                for r in np.flatnonzero(~(pr <= thr)):
+                    # keyed by GLOBAL scenario id: chunk-local
+                    # coordinates would re-target other scenarios if
+                    # the chunk changed
+                    g = d * L + ids[r]
+                    if g not in failed and g < self._S_orig:
+                        picks.append((ci, d, int(r), g, float(pr[r])))
         if not picks:
             return 0
-        picks.sort(key=lambda t: -t[3])     # worst first under the cap
+        picks.sort(key=lambda t: -t[4])     # worst first under the cap
         picks = picks[:cap]
-        sel = np.array([g for _, _, g, _ in picks])
-        pad = cap - sel.size
-        sel_p = np.concatenate([sel, np.full(pad, sel[0])]) if pad else sel
-        k = sel_p.size
-        sel_t = torch.as_tensor(sel_p, dtype=torch.long, device=self.device)
-        n = int(data.lb.shape[-1])
-        A_b = data.A.expand(k, *data.A.shape) if data.A.ndim == 2 \
-            else data.A[sel_t]
-        P_b = data.P_diag.expand(k, n) if data.P_diag.ndim == 1 \
-            else data.P_diag[sel_t]
-        d_h = QPData(P_b, A_b, data.l[sel_t], data.u[sel_t],
-                     data.lb[sel_t], data.ub[sel_t])
+        # selection row j -> (owning rank, local row); pads repeat pick 0
+        owners = [(d, g - d * L) for _, d, _, g, _ in picks]
+        owners += [owners[0]] * (cap - len(owners))
+        k = len(owners)
         asm = self._assembly_operands(shrink)
-        ws = None if asm["ws"] is None else asm["ws"][sel_t]
-        q_h, bl_h, bu_h = _ph_assemble(
-            d_h, asm["c"][sel_t], asm["W"][sel_t], asm["xbar"][sel_t],
-            asm["rho"][sel_t], asm["idx"], asm["fm"][sel_t],
-            asm["fv"][sel_t], ws, w_on=w_on, prox_on=prox_on)
-        d_h = d_h._replace(lb=bl_h, ub=bu_h)
-        fac_h = qp_setup(d_h, q_ref=q_h)
-        st_h = qp_cold_state(fac_h, d_h)
+        n = int(data.lb.shape[-1])
+        mine = [j for j, (d, _) in enumerate(owners) if d == me]
+        loc_t = torch.as_tensor([owners[j][1] for j in mine],
+                                dtype=torch.long, device=self.device)
+        P_m = data.P_diag.expand(len(mine), n) if data.P_diag.ndim == 1 \
+            else data.P_diag[loc_t]
+        A_b = data.A.expand(len(mine), *data.A.shape) if data.A.ndim == 2 \
+            else data.A[loc_t]
+        d_m = QPData(P_m, A_b, data.l[loc_t], data.u[loc_t],
+                     data.lb[loc_t], data.ub[loc_t])
+        ws = None if asm["ws"] is None else asm["ws"][loc_t]
+        q_m, bl_m, bu_m = _ph_assemble(
+            d_m, asm["c"][loc_t], asm["W"][loc_t], asm["xbar"][loc_t],
+            asm["rho"][loc_t], asm["idx"], asm["fm"][loc_t],
+            asm["fv"][loc_t], ws, w_on=w_on, prox_on=prox_on)
+        rows = {"l": d_m.l, "u": d_m.u, "lb": bl_m, "ub": bu_m, "q": q_m}
+        if data.P_diag.ndim != 1:
+            rows["P"] = d_m.P_diag
+        if sh is not None:
+            # every rank's picked rows on every rank: exact, each row
+            # has one writer; a per-scenario A travels with its rows
+            if data.A.ndim == 3:
+                rows["A"] = A_b.flatten(1)
+            sel_t = torch.as_tensor(mine, dtype=torch.long,
+                                    device=self.device)
+            packed = torch.cat([v for v in rows.values()], dim=1)
+            buf = torch.zeros((k, packed.shape[1]), dtype=packed.dtype,
+                              device=self.device)
+            buf = self.mesh.all_sum(buf.index_copy(0, sel_t, packed))
+            off = 0
+            for name, v in list(rows.items()):
+                rows[name] = buf[:, off:off + v.shape[1]]
+                off += v.shape[1]
+            A_b = data.A.expand(k, *data.A.shape) if data.A.ndim == 2 \
+                else rows["A"].reshape(k, *data.A.shape[1:])
+        P_b = data.P_diag.expand(k, n) if data.P_diag.ndim == 1 \
+            else rows["P"]
+        d_h = QPData(P_b, A_b, rows["l"], rows["u"], rows["lb"],
+                     rows["ub"])
+        q_h = rows["q"]
         # native precision, a larger budget and long segments: the
-        # batch is a few rows
-        st_h, x_h, yA_h, yB_h = _solver_call(
-            fac_h, d_h, q_h, st_h,
-            **dict(kw, precision="native", kernel=None,
-                   sub_max_iter=max(6000, kw["sub_max_iter"]),
-                   segment=1500))
+        # batch is a few rows, and every rank solves all of them
+        with mesh_scope(None):
+            fac_h = qp_setup(d_h, q_ref=q_h)
+            st_h = qp_cold_state(fac_h, d_h)
+            st_h, x_h, yA_h, yB_h = _solver_call(
+                fac_h, d_h, q_h, st_h,
+                **dict(kw, precision="native", kernel=None,
+                       sub_max_iter=max(6000, kw["sub_max_iter"]),
+                       segment=1500))
         pr_h = st_h.pri_rel.cpu().numpy()
         obs.counter_add("ph.hospital_treated", len(picks))
         worst = " ".join(
             f"s{g}:{pr_old:.0e}->{pr_h[j]:.0e}"
-            for j, (_, _, g, pr_old) in enumerate(picks))
+            for j, (_, _, _, g, pr_old) in enumerate(picks))
         self._trace_note(
             "ph.hospital",
             f"hospital: treated {len(picks)} scenario(s) [{worst}]",
             treated=len(picks),
             scenarios=[{"scenario": g, "pri_rel_before": pr_old,
                         "pri_rel_after": float(pr_h[j])}
-                       for j, (_, _, g, pr_old) in enumerate(picks)])
-        for j, (ci, r, g, pr_old) in enumerate(picks):
+                       for j, (_, _, _, g, pr_old) in enumerate(picks)])
+        for j, (ci, d, r, g, pr_old) in enumerate(picks):
             if not (pr_h[j] <= thr):
                 # one shot per scenario until re-admission; an improved
                 # row still gets its better solution below
                 failed.add(g)
             if not (pr_h[j] < pr_old):
+                continue
+            if pri_glob is not None:
+                pri_glob[d, ci, r] = pr_h[j]
+            if d != me:
                 continue
             rec = solved_chunks[ci]
             st = rec[0]
@@ -1716,8 +1840,6 @@ class PHBase(SPBase):
             rec[1] = _set_row(rec[1], r, x_h[j])
             rec[2] = _set_row(rec[2], r, yA_h[j])
             rec[3] = _set_row(rec[3], r, yB_h[j])
-            if pri_host is not None:
-                pri_host[ci][r] = pr_h[j]
         return 1
 
     # ------------- phase anatomy -------------
@@ -1766,8 +1888,7 @@ class PHBase(SPBase):
         st = self._qp_states.get(key)
         if st is None:
             return None
-        pri = st.pri_rel.cpu().numpy()[:self._S_orig]
-        dua = st.dua_rel.cpu().numpy()[:self._S_orig]
+        pri, dua = self._real_rows(st.pri_rel, st.dua_rel)
         return {"pri_rel_max": float(pri.max()),
                 "pri_rel_mean": float(pri.mean()),
                 "dua_rel_max": float(dua.max()),
@@ -1780,9 +1901,19 @@ class PHBase(SPBase):
             tol = float(self.options.get("iter0_feas_tol",
                                          max(1e-3, 100 * self.sub_eps)))
         st = self._qp_states[False]
-        ok = (st.pri_res.cpu().numpy()[:self._S_orig] <= tol) \
-            | (st.pri_rel.cpu().numpy()[:self._S_orig] <= tol)
-        return ok, tol
+        pri, rel = self._real_rows(st.pri_res, st.pri_rel)
+        return (pri <= tol) | (rel <= tol), tol
+
+    def _real_rows(self, *vecs):
+        """Host copies of per-scenario (S,) vectors, every rank's rows
+        on a sharded mesh (one all-reduce), zero-probability pad rows
+        trimmed."""
+        out = []
+        for v in vecs:
+            if self._shard_ops is not None:
+                v = self.gather_rows(v)
+            out.append(to_host(v)[:self._S_orig])
+        return out
 
     def assert_feasible_iter0(self, tol=None):
         """Abort when any scenario's iter-0 subproblem came out
@@ -1793,7 +1924,8 @@ class PHBase(SPBase):
         ok, tol = self.iter0_feasible_mask(tol)
         if not np.all(ok):
             bad = np.flatnonzero(~ok)
-            names = [self.batch.tree.scen_names[i] for i in bad[:5]]
+            names = [self.global_batch.tree.scen_names[i]
+                     for i in bad[:5]]
             raise RuntimeError(
                 f"iter0: {bad.size} scenario subproblem(s) infeasible "
                 f"(pri_rel > {tol:g}), e.g. {names} — aborting like the "
@@ -1908,7 +2040,7 @@ class PHBase(SPBase):
                     factors, d, self.c, self.c0, st, rec_ints,
                     max_iter=self.sub_max_iter, eps=self.sub_eps,
                     feas_tol=feas_tol, polish_chunk=self.sub_polish_chunk)
-                if not bool(feasible.all()):
+                if not self._all_ranks(feasible.all()):
                     return None
                 return float(self.Eobjective(obj))
             self.solve_loop(w_on=False, prox_on=False, update=False,
@@ -1916,7 +2048,8 @@ class PHBase(SPBase):
             st = self._qp_states[("fixed", False)]
             pri = to_host(st.pri_res)
             rel = to_host(st.pri_rel)
-            if not np.all((pri <= feas_tol) | (rel <= feas_tol)):
+            if not self._all_ranks(np.all((pri <= feas_tol)
+                                          | (rel <= feas_tol))):
                 # an infeasible candidate leaves a DIVERGED state behind
                 # (blown rho_scale, huge duals): warm-starting the NEXT
                 # candidate from it can "converge" by the corrupt
@@ -1935,7 +2068,14 @@ class PHBase(SPBase):
     def _dive_in_chunks(self, factors, d, q, c0, st, imask, **kw):
         """core.mip.dive_integers with scenario microbatching. Dives
         have no cross-scenario coupling (each scenario pins its own
-        columns), so chunking is exact."""
+        columns), so chunking is exact. On a sharded mesh each rank
+        dives its own rows with the solver's stopping rules local to
+        them (its rounds decide on the host from its own rows), so no
+        collective runs inside."""
+        with mesh_scope(None):
+            return self._dive_local(factors, d, q, c0, st, imask, **kw)
+
+    def _dive_local(self, factors, d, q, c0, st, imask, **kw):
         from .mip import dive_integers
 
         chunk = int(self.options.get("subproblem_chunk", 0) or 0)
@@ -1994,9 +2134,18 @@ class PHBase(SPBase):
             keep = np.zeros(n, bool)
             keep[idx_np[np.asarray(dive_slots, bool)]] = True
             imask &= keep
+        sh = self._shard_ops
+        if X is not None and sh is not None \
+                and np.shape(X)[0] == sh.S:
+            # the whole (S_pad, K) consensus: this rank's rows
+            X = np.asarray(X)[sh.lo:sh.hi]
         if not imask.any():
             xn = self._hub_nonants() if X is None else X
-            return to_host(xn), np.ones(self.batch.S, bool)
+            if sh is not None:
+                xn = self.gather_rows(torch.as_tensor(
+                    np.asarray(X), dtype=self.dtype, device=self.device)
+                    if X is not None else xn)
+            return to_host(xn), np.ones(xn.shape[0], bool)
         prox_on = X is not None
         factors, d = self._get_factors(prox_on, full=True)
         if prox_on:
@@ -2023,7 +2172,13 @@ class PHBase(SPBase):
             max_iter=int(max_iter or min(self.sub_max_iter, 1500)),
             eps=max(self.sub_eps, 1e-6), feas_tol=feas_tol,
             polish_chunk=self.sub_polish_chunk, **kw)
-        return to_host(x)[:, idx_np], to_host(feasible)
+        xn = x[:, self.nonant_idx]
+        if sh is not None:
+            # every rank's candidates (the padded whole, as the JAX
+            # package's sharded engine returns them)
+            xn = self.gather_rows(xn)
+            feasible = self.gather_rows(feasible.to(torch.uint8)).bool()
+        return to_host(xn), to_host(feasible)
 
     def _hub_nonants(self):
         """(S, K) latest subproblem nonant values for cylinder traffic
@@ -2065,6 +2220,9 @@ class PHBase(SPBase):
         +inf. Equivalent to P ``calculate_incumbent`` calls; shapes the
         chunked solver cannot batch (per-scenario A) or that need the
         recourse-integer dive run those calls instead."""
+        if self._shard_ops is not None:
+            raise _not_ported("the batched incumbent-pool evaluation on a "
+                              "sharded engine", "A8b")
         if feas_tol is None:
             feas_tol = float(self.options.get("xhat_feas_tol", 1e-4))
         if not isinstance(pool, torch.Tensor):

@@ -1,5 +1,5 @@
 """SPBase: the root runtime object of the port's engines (the port of
-mpisppy_tpu/core/spbase.py; one device, no mesh, no streaming).
+mpisppy_tpu/core/spbase.py; no streaming).
 
 The whole scenario batch lives on the device as stacked tensors:
 probabilities and nonant indices come from the ScenarioBatch, the
@@ -15,6 +15,19 @@ shared matrix and the bound vectors are cached on the batch, keyed by
 holding its own copy (reference UC: 2.7 GB of A per engine). Torch
 tensors are mutable: no consumer writes a cached tensor in place, the
 rule the chunked path keeps for its shared states.
+
+Scenario-axis mesh (``mesh=``, parallel/mesh.py): the batch is padded
+with zero-probability copies of its last scenario to a multiple of the
+world size (rounded further so a per-rank ``subproblem_chunk`` divides
+the shard), and the engine holds only this rank's contiguous shard of
+every per-scenario tensor (``ir/batch.shard_batch``: global
+probabilities, global tree-node columns); a shared A and its factors
+are each rank's own copy. ``self.batch`` is the shard, ``global_batch``
+the padded whole and ``_S_orig`` the real scenario count. Reductions
+over scenarios are this shard's terms summed over the ranks (one
+all-reduce each; parallel/mesh.node_means for x̄, the same body as
+without a mesh), and the batch device cache is bypassed: the shard is
+this engine's own.
 """
 
 from __future__ import annotations
@@ -76,40 +89,41 @@ def cached(batch, key, fn):
         return cache[key]
 
 
-def compute_xbar(memberships, slot_slices, weights, xn):
-    """Nonanticipative mean per tree node, broadcast back to scenarios.
-
-    xn: (S, K) nonant slots. Per non-leaf stage t with membership B_t:
-    xbar = B_t (B_tᵀ(w⊙x) / B_tᵀw) — the per-node Allreduce of the
-    reference's Compute_Xbar (ref. phbase.py:144-221) as dense matmuls.
-    ``weights``: the (S,) scenario probabilities or (S, K) per-variable
-    weights."""
-    outs = []
-    for B, sl in zip(memberships, slot_slices):
-        if isinstance(sl, tuple):
-            sl = slice(*sl)
-        xt = xn[:, sl]
-        if weights.ndim == 2:
-            w = weights[:, sl]
-            outs.append(B @ ((B.T @ (w * xt)) / (B.T @ w)))
-        else:
-            pnode = B.T @ weights
-            num = B.T @ (weights.unsqueeze(-1) * xt)
-            outs.append(B @ (num / pnode.unsqueeze(-1)))
-    return torch.cat(outs, dim=1)
-
-
 class SPBase:
     def __init__(self, batch: ScenarioBatch, options=None, dtype=None,
-                 device=None):
+                 device=None, mesh=None):
         """``device``: None for the CUDA device (raises without one);
-        ``"cpu"`` runs on the CPU."""
+        ``"cpu"`` runs on the CPU. ``mesh``: a parallel/mesh.Mesh whose
+        ranks shard the scenario axis (the mesh's device is the
+        engine's)."""
+        self._S_orig = batch.S
+        self.mesh = mesh
+        self._shard_ops = None
+        self._row0 = 0
+        if mesh is not None:
+            from ..parallel.mesh import mesh_padding, pad_batch_for_mesh
+            chunk = int((options or {}).get("subproblem_chunk", 0) or 0)
+            batch, self._S_orig = pad_batch_for_mesh(
+                batch, mesh_padding(batch.S, mesh.size, chunk))
+            device = mesh.device
+        # the padded whole: structure detection and the probability
+        # check read it; every tensor ships from the shard below
+        self.global_batch = whole = batch
+        if mesh is not None and mesh.size > 1:
+            from ..ir.batch import shard_batch
+            from ..parallel.mesh import ShardedScenarioOps
+            self._shard_ops = ShardedScenarioOps(
+                mesh, whole.tree,
+                tuple((sl.start, sl.stop)
+                      for sl in whole.stage_slot_slices), whole.S)
+            self._row0 = self._shard_ops.lo
+            batch = shard_batch(whole, self._shard_ops.lo,
+                                self._shard_ops.hi)
         self.device = resolve_device(device)
         self.batch = batch
         self.options = dict(options or {})
         self.dtype = dtype or DTYPE
         self.spcomm = None
-        self._S_orig = batch.S
         if str(self.options.get("scenario_source", "resident")) \
                 != "resident":
             raise NotImplementedError(
@@ -120,7 +134,7 @@ class SPBase:
         # scenario set (core/aph_shard.py), whose scenarios carry their
         # GLOBAL probabilities and sum to the shard's mass
         if not self.options.get("partial_probabilities") \
-                and abs(float(b.prob.sum()) - 1.0) > 1e-6:
+                and abs(float(whole.prob.sum()) - 1.0) > 1e-6:
             raise ValueError("scenario probabilities must sum to 1 "
                              "(ref. spbase.py:443 checks)")
         t, dev = self.dtype, self.device
@@ -135,7 +149,7 @@ class SPBase:
                                           dtype=torch.long).to(dev)
         # shared-structure detection: every scenario carries the SAME
         # constraint matrix and quadratic (UC: randomness in the rhs)
-        A_np, P_np = np.asarray(b.A), np.asarray(b.P_diag)
+        A_np, P_np = np.asarray(whole.A), np.asarray(whole.P_diag)
         if A_np.ndim == 2:
             self.shared_structure = bool((P_np == P_np[0]).all())
             if not self.shared_structure:
@@ -144,8 +158,11 @@ class SPBase:
                     "QP kernel's shared mode needs both")
         else:
             self.shared_structure = bool(
-                b.S > 1 and (A_np == A_np[0]).all()
+                whole.S > 1 and (A_np == A_np[0]).all()
                 and (P_np == P_np[0]).all())
+        # a mesh engine's tensors are its own (the shard is a new host
+        # batch, and the shared A is each rank's copy): no cache
+        cache_on = mesh is None
         if self.shared_structure:
             # df32: A lives on the device only as the two-term f32 split
             split = str(self.options.get("subproblem_precision",
@@ -154,17 +171,20 @@ class SPBase:
                 raise ValueError("subproblem_precision='df32' needs "
                                  f"dtype=float64; got {t}")
             A2d = A_np if A_np.ndim == 2 else A_np[0]
-            A_dev = cached(b, ("A", str(t), str(dev), split),
-                           lambda: ship_shared_matrix(A2d, t, dev,
-                                                      split=split))
+            def ship_A():
+                return ship_shared_matrix(A2d, t, dev, split=split)
+            A_dev = cached(b, ("A", str(t), str(dev), split), ship_A) \
+                if cache_on else ship_A()
             P_dev = ship_stacked(P_np[0], t, dev)
 
             def vec(name):
+                if not cache_on:
+                    return ship_stacked(getattr(b, name), t, dev)
                 return cached(b, (name, str(t), str(dev)),
                               lambda: ship_stacked(getattr(b, name), t,
                                                    dev))
         else:
-            A_dev = ship_stacked(A_np, t, dev)
+            A_dev = ship_stacked(np.asarray(b.A), t, dev)
             P_dev = self.P_diag
 
             def vec(name):
@@ -179,8 +199,30 @@ class SPBase:
 
     # ---- reductions (the reference's Allreduce family) ----
     def Eobjective(self, obj_per_scen):
-        """Probability-weighted expected objective (ref. phbase.py:279)."""
-        return torch.dot(self.prob, obj_per_scen)
+        """Probability-weighted expected objective (ref. phbase.py:279);
+        on a mesh the local dot summed over the ranks."""
+        v = torch.dot(self.prob, obj_per_scen)
+        return v if self._shard_ops is None else self.mesh.all_sum(v)
+
+    # ---- mesh plumbing (identities without a sharded mesh) ----
+    @property
+    def shard_mesh(self):
+        """The mesh when this engine is sharded over more than one rank,
+        else None: the argument the collective helpers take."""
+        return None if self._shard_ops is None else self.mesh
+
+    def _all_ranks(self, flag) -> bool:
+        """``flag`` (host or device bool) on every rank."""
+        if self._shard_ops is None:
+            return bool(flag)
+        return self.mesh.all_true(flag)
+
+    def gather_rows(self, t):
+        """The (S_pad, ...) whole of a per-scenario tensor on every rank
+        (``t`` itself without a sharded mesh)."""
+        if self._shard_ops is None:
+            return t
+        return self.mesh.gather_rows(t, self._shard_ops.S)
 
     def scenario_objectives(self, x):
         """Per-scenario objective values of an (S, n) solution block."""
@@ -193,8 +235,13 @@ class SPBase:
         return self.prob if self.vprob is None else self.vprob
 
     def compute_xbar(self, xn):
-        return compute_xbar(self.memberships, self.slot_slices,
-                            self.xbar_weights, xn)
+        """x̄ of an (S, K) nonant block: this engine's rows, reduced
+        over the ranks on a sharded mesh (one all-reduce)."""
+        from ..parallel.mesh import node_means
+        if self._shard_ops is not None:
+            self._shard_ops.book_collective(xn.dtype, full=False)
+        return node_means(self.memberships, self.slot_bounds,
+                          self.xbar_weights, xn, self.shard_mesh)[0]
 
     def nonants_of(self, x):
         return x[..., self.nonant_idx]

@@ -624,24 +624,77 @@ class Hub(SPCommunicator):
         raise NotImplementedError
 
 
+def hub_blocks(opt):
+    """The hub engine's (W, nonants) as host (S_orig, K) arrays. A
+    SHARDED engine's blocks are every rank's rows, assembled by two
+    zero-buffer all-reduces (parallel/mesh.Mesh.gather_rows) in which
+    every rank of the mesh takes part: rank 0's PHHub.sync and the
+    other ranks' MeshFollower.sync both call this, in this order. The
+    cylinder wire format carries the REAL scenarios only (spokes run
+    unpadded engines and size their windows from the true S)."""
+    S = getattr(opt, "_S_orig", None)
+    gather = getattr(opt, "gather_rows", lambda t: t)
+    W = to_host(gather(opt.W), np.float64)[:S]
+    X = to_host(gather(opt._hub_nonants()), np.float64)[:S]
+    return W, X
+
+
+def _share_stop(opt, stop, outer):
+    """Rank 0's stop decision and best outer bound, broadcast over the
+    engine's mesh (the one broadcast of an iteration; identity without
+    a sharded mesh). Returns (stop, outer) as every rank holds them."""
+    mesh = getattr(opt, "shard_mesh", None)
+    if mesh is None:
+        return stop, outer
+    import torch
+    v = mesh.broadcast(torch.tensor([float(bool(stop)), float(outer)],
+                                    dtype=torch.float64,
+                                    device=mesh.device))
+    v = v.cpu().tolist()
+    return bool(v[0]), v[1]
+
+
+class MeshFollower:
+    """The hub side of a wheel on ranks 1.. of a sharded hub engine:
+    rank 0 runs the cylinders and the spokes' threads, the other ranks
+    run only the hub engine's loop, whose ``spcomm`` this is. Each
+    iteration it joins rank 0's collectives in PHHub.sync's order (the
+    W and nonant gathers of ``hub_blocks``) and takes rank 0's stop
+    decision and outer bound from its broadcast, so every rank leaves
+    the loop at the same iteration and none is left in a collective."""
+
+    def __init__(self, opt):
+        self.opt = opt
+        self.BestOuterBound = -math.inf
+
+    def sync(self):
+        hub_blocks(self.opt)
+
+    def is_converged(self) -> bool:
+        stop, outer = _share_stop(self.opt, False, -math.inf)
+        self.BestOuterBound = outer
+        self.opt.update_best_bound(outer)
+        return stop
+
+
 class PHHub(Hub):
-    """PH as the hub algorithm (ref. hub.py:371-508)."""
+    """PH as the hub algorithm (ref. hub.py:371-508). Over a sharded
+    engine this hub runs on rank 0 (see MeshFollower)."""
 
     def setup_hub(self):
         assert self.windows_made
 
+    @staticmethod
+    def follower_main(opt):
+        """The hub engine's loop on a follower rank of a mesh."""
+        opt.ph_main(finalize=False)
+
     def _hub_arrays(self):
         """(W_flat, X_flat) the spokes should see — the ONE overridable
         source (APHShardHub substitutes Synchronizer-gathered full
-        arrays; the push layout below stays shared). A SHARDED hub
-        engine pads its scenario axis to the mesh (doc/sharding.md);
-        the cylinder wire format carries the REAL scenarios only —
-        spokes run unpadded engines and size their windows from the
-        true S."""
-        S = getattr(self.opt, "_S_orig", None)
-        return (to_host(self.opt.W, np.float64)[:S].reshape(-1),
-                to_host(self.opt._hub_nonants(),
-                        np.float64)[:S].reshape(-1))
+        arrays; the push layout below stays shared)."""
+        W, X = hub_blocks(self.opt)
+        return W.reshape(-1), X.reshape(-1)
 
     def send_ws(self, X=None, W=None):
         if W is None:
@@ -670,7 +723,9 @@ class PHHub(Hub):
                 self._trivial_seed = float(self.opt.trivial_bound)
             self.OuterBoundUpdate(self.opt.trivial_bound, "T")
         self.screen_trace(self.opt._iter)
-        return self.determine_termination()
+        stop, _ = _share_stop(self.opt, self.determine_termination(),
+                              self.BestOuterBound)
+        return stop
 
     def main(self):
         self.opt.ph_main(finalize=False)
@@ -722,6 +777,10 @@ class CrossScenarioHub(PHHub):
 
 class APHHub(PHHub):
     """APH as the hub algorithm (ref. hub.py:606-686)."""
+
+    @staticmethod
+    def follower_main(opt):
+        opt.APH_main(finalize=False)
 
     def main(self):
         self.opt.APH_main(finalize=False)

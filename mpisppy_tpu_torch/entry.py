@@ -14,6 +14,13 @@ otherwise.
     fn, args = entry(device="cpu")
     (qp_state, x, yA, yB, xn, xbar, xsqbar, W, conv, base_obj,
      solved_obj, dual_obj) = fn(*args)
+
+``dryrun_multichip(n, device=None)`` is the twin of
+``__graft_entry__.dryrun_multichip``: the scenario-chunked df32 PH step
+(iter 0 and one prox-on step) on a UC with 6 generators x 6 hours and
+every constraint family on, S = 2n, chunk 1 per rank, plus the batched
+integer dive, sharded over n ranks started by parallel/launch (gloo on
+the CPU). It returns rank 0's summary dict.
 """
 
 from __future__ import annotations
@@ -69,3 +76,62 @@ def entry(device=None):
                 conv, base_obj, solved_obj, dual_obj)
 
     return fn, args
+
+
+DRYRUN_OPTIONS = {"defaultPHrho": 100.0, "subproblem_max_iter": 600,
+                  "subproblem_eps": 1e-5, "subproblem_precision": "df32",
+                  "subproblem_tail_iter": 400, "subproblem_chunk": 1,
+                  "subproblem_hospital": False, "iter0_feas_tol": 2e-2}
+
+
+def _dryrun_rank(mesh):
+    import numpy as np
+    import torch
+
+    from .core.ph import PHBase
+    from .ir.batch import build_batch
+    from .models import uc
+    from .ops.qp_solver import SplitMatrix
+
+    n_dev = mesh.size
+    S = 2 * n_dev
+    batch = build_batch(
+        uc.scenario_creator, uc.make_tree(S),
+        creator_kwargs={"num_gens": 6, "num_hours": 6,
+                        "relax_integrality": False, "min_up_down": True,
+                        "ramping": True, "t0_state": True,
+                        "startup_shutdown_ramps": True},
+        vector_patch=uc.scenario_vector_patch)
+    ph = PHBase(batch, dict(DRYRUN_OPTIONS), mesh=mesh)
+    if not (isinstance(ph.qp_data.A, SplitMatrix)
+            and ph.qp_data.A.struct is not None):
+        raise RuntimeError("the dryrun must run the packed df32 "
+                           "representation")
+    ph.solve_loop(w_on=False, prox_on=False)       # iter 0, chunked
+    ph.W = ph.W_new
+    ph.solve_loop(w_on=True, prox_on=True)         # one hot step
+    xbar = ph.gather_rows(ph.xbar)
+    if not bool(torch.isfinite(xbar).all()):
+        raise RuntimeError("the sharded step left a non-finite x̄")
+    pt = ph.phase_timing(True)
+    want = "sharded" if n_dev > 1 else "host"
+    if pt["mode"] != want or pt["devices"] != n_dev:
+        raise RuntimeError(f"the {want} chunked path must engage: {pt}")
+    # the incumbent dive (commitments pinned, startups derived)
+    idx = np.asarray(batch.nonant_idx)
+    col_in = np.zeros(batch.n, bool)
+    col_in[batch.template.var_slices["u"]] = True
+    cands, feas = ph.dive_nonant_candidates(xbar.cpu().numpy(),
+                                            dive_slots=col_in[idx])
+    return {"mode": pt["mode"], "devices": pt["devices"], "S": S,
+            "shard": ph.batch.S, "conv": ph.conv,
+            "cands_shape": list(cands.shape),
+            "dive_feasible": int(np.sum(feas)),
+            "backend": mesh.backend}
+
+
+def dryrun_multichip(n_devices: int, device=None) -> dict:
+    """The sharded production step on ``n_devices`` ranks (see the
+    module docstring); ``device="cpu"`` runs every rank on the CPU."""
+    from .parallel.launch import launch
+    return launch(_dryrun_rank, int(n_devices), device=device)[0]

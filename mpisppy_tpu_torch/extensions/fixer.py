@@ -214,7 +214,8 @@ class DeviceFixer(Extension):
             self._conv_count, self._lb_count, self._ub_count,
             opt._fixed_mask, opt._fixed_vals, opt.xbar, opt.xsqbar,
             opt._hub_nonants(), self._slot_lb, self._slot_ub, self._tol,
-            self._boundtol, self._nbc, self._lbc, self._ubc, self._imask)
+            self._boundtol, self._nbc, self._lbc, self._ubc, self._imask,
+            mesh=getattr(opt, "shard_mesh", None))
         # the ONE host scalar of the pass; the (S, K) mask and values
         # stay on the device (fix_nonants takes device tensors)
         nf = int(n_fixed)

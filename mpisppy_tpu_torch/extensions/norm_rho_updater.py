@@ -121,7 +121,7 @@ class DeviceNormRhoUpdater(Extension):
         from ..ops.shrink import per_slot_rho_update
         new_rho, stats = per_slot_rho_update(
             opt.rho, opt.prob, opt._hub_nonants(), opt.xbar, prev,
-            self.mult, self.factor)
+            self.mult, self.factor, mesh=getattr(opt, "shard_mesh", None))
         st = to_host(stats)       # the ONE (3,) read of the pass
         self.prim_hist.append(float(st[1]))
         self.dual_hist.append(float(st[2]))

@@ -280,3 +280,65 @@ def shard_batch(batch: ScenarioBatch, lo: int, hi: int) -> ScenarioBatch:
         lb=batch.lb[sl], ub=batch.ub[sl],
         c_stage=batch.c_stage[sl], c0_stage=batch.c0_stage[sl],
         prob=batch.prob[sl])
+
+
+_BATCH_ARRAYS = ("c", "c0", "P_diag", "A", "l", "u", "lb", "ub", "c_stage",
+                 "c0_stage", "prob", "nonant_idx", "nonant_stage")
+_FORM_ARRAYS = ("c", "P_diag", "l", "u", "lb", "ub", "integer",
+                "stage_of_var", "c_stage", "c0_stage")
+
+
+def save_batch(batch: ScenarioBatch, path) -> None:
+    """Write ``batch`` to one uncompressed ``.npz``: the stacked arrays,
+    the tree, the slot slices and the template form (whose A is not
+    written again when the batch shares it), with the names and slices
+    as one JSON string. ``load_batch`` reads it back; the ranks of a
+    mesh use the pair to start from one host batch built once."""
+    import json
+    t, f = batch.tree, batch.template
+    meta = {
+        "tree": {"scen_names": list(t.scen_names),
+                 "nodes_per_stage": [int(n) for n in t.nodes_per_stage],
+                 "nonant_names_per_stage": t.nonant_names_per_stage},
+        "slot_slices": [[s.start, s.stop] for s in batch.stage_slot_slices],
+        "form": {"name": f.name, "n": int(f.n), "m": int(f.m),
+                 "c0": float(f.c0), "sense": f.sense,
+                 "var_names": list(f.var_names),
+                 "var_slices": {k: [s.start, s.stop]
+                                for k, s in f.var_slices.items()},
+                 "con_slices": {k: [s.start, s.stop]
+                                for k, s in f.con_slices.items()},
+                 "A_shared": f.A is batch.A}}
+    arrays = {k: np.asarray(getattr(batch, k)) for k in _BATCH_ARRAYS}
+    arrays.update({f"form_{k}": np.asarray(getattr(f, k))
+                   for k in _FORM_ARRAYS})
+    if f.A is not batch.A:
+        arrays["form_A"] = np.asarray(f.A)
+    arrays["tree_node_path"] = t.node_path
+    arrays["tree_probabilities"] = t.probabilities
+    np.savez(path, meta=np.asarray(json.dumps(meta)), **arrays)
+
+
+def load_batch(path) -> ScenarioBatch:
+    """The ScenarioBatch ``save_batch`` wrote to ``path``."""
+    import json
+
+    with np.load(path) as z:
+        meta = json.loads(str(z["meta"]))
+        arr = {k: z[k] for k in z.files if k != "meta"}
+    fm = meta["form"]
+    sl = lambda d: {k: slice(*v) for k, v in d.items()}  # noqa: E731
+    form = StandardForm(
+        name=fm["name"], n=fm["n"], m=fm["m"], c0=fm["c0"],
+        A=arr["A"] if fm["A_shared"] else arr["form_A"],
+        var_names=fm["var_names"], var_slices=sl(fm["var_slices"]),
+        con_slices=sl(fm["con_slices"]), sense=fm["sense"],
+        **{k: arr[f"form_{k}"] for k in _FORM_ARRAYS})
+    tm = meta["tree"]
+    tree = ScenarioTree(tm["scen_names"], arr["tree_node_path"],
+                        tm["nodes_per_stage"], tm["nonant_names_per_stage"],
+                        probabilities=arr["tree_probabilities"])
+    return ScenarioBatch(
+        tree=tree, template=form,
+        stage_slot_slices=[slice(a, b) for a, b in meta["slot_slices"]],
+        **{k: arr[k] for k in _BATCH_ARRAYS})

@@ -21,6 +21,15 @@ pair (L⁻¹ with L). Cholesky and the triangular solves are
 ``torch.linalg``; the (n, n) product ``Aᵀ diag(ρ) A`` is
 ``torch.matmul``.
 
+Scenario-axis mesh (``mesh_scope``): inside the scope of a sharded
+engine the three checks that read the whole batch become one
+all-reduce each, so every rank scales, adapts and exits as the
+unsharded solve of all ranks' rows would: the shared cost scale (the
+max of the scaled cost over scenarios), the shared equality pattern and
+adaptive rho (the mean of the log ratio over scenarios), and the exit
+test (every scenario converged or stalled). Without a scope nothing
+changes.
+
 Precisions: ``native`` iterates in the engine dtype; ``qp_solve_mixed``
 runs an f32 bulk phase, then an accurate tail. A shared A may be a
 ``SplitMatrix`` (the df32 representation: hi + lo f32 pair, optionally
@@ -40,6 +49,32 @@ from typing import NamedTuple
 import torch
 
 from .. import obs
+
+
+_MESH = contextvars.ContextVar("qp_mesh", default=None)
+
+
+@contextlib.contextmanager
+def mesh_scope(mesh):
+    """Solves and setups in this scope (this thread) reduce their
+    whole-batch checks over ``mesh``'s ranks (parallel/mesh.Mesh; None
+    turns the reduction off, as a rank's purely local solve needs)."""
+    tok = _MESH.set(mesh if mesh is not None and mesh.size > 1 else None)
+    try:
+        yield
+    finally:
+        _MESH.reset(tok)
+
+
+def _global_max(t):
+    m = _MESH.get()
+    return t if m is None else m.all_max(t)
+
+
+def _global_all(flag):
+    """A device bool that holds on every row of every rank."""
+    m = _MESH.get()
+    return flag if m is None else m.all_min(flag.to(torch.uint8)).bool()
 
 
 class QPData(NamedTuple):
@@ -449,8 +484,8 @@ def _rho_patterns(l, u, lb, ub, rho_base, eq_boost, shared, dt):
     is_eq = _is_eq(l, u)
     is_eq_b = _is_eq(lb, ub)
     if shared:
-        is_eq = is_eq.all(dim=0)
-        is_eq_b = is_eq_b.all(dim=0)
+        is_eq = _global_all(is_eq.all(dim=0))
+        is_eq_b = _global_all(is_eq_b.all(dim=0))
     kw = dict(dtype=dt, device=l.device)
     hi = torch.tensor(rho_base * eq_boost, **kw)
     lo = torch.tensor(rho_base, **kw)
@@ -470,7 +505,7 @@ def _setup_vectors(P_diag, l, u, lb, ub, D, q_ref, rho_base, eq_boost,
     gn_P = P_s.abs().amax(dim=-1)
     gn_q = qs.abs().amax(dim=-1)
     if shared:
-        gnorm = torch.maximum(gn_P, gn_q.amax())
+        gnorm = torch.maximum(gn_P, _global_max(gn_q.amax()))
         cost_scale = 1.0 / torch.clamp(gnorm, min=1.0)
         P_s = P_s * cost_scale
     else:
@@ -746,12 +781,20 @@ def _solve_impl(factors: QPFactors, data: QPData, q, state: QPState,
             best_dua = torch.minimum(best_dua, dua)
         rho_changed = torch.zeros_like(conv_ok)
         if adaptive_rho and ((it // check_every) % 4) == 3:
-            not_conv = ~conv_ok.all()
+            not_conv = ~_global_all(conv_ok.all())
             ratio_s = torch.sqrt((pri / pri_sc)
                                  / torch.clamp(dua / dua_sc, min=1e-30))
             if shared:
-                ratio = torch.exp(torch.mean(torch.log(
-                    torch.clamp(ratio_s, 1e-6, 1e6))))
+                logs = torch.log(torch.clamp(ratio_s, 1e-6, 1e6))
+                mesh = _MESH.get()
+                if mesh is None:
+                    ratio = torch.exp(torch.mean(logs))
+                else:
+                    tot = mesh.all_sum(torch.stack(
+                        [logs.sum(), torch.tensor(
+                            float(logs.numel()), dtype=logs.dtype,
+                            device=logs.device)]))
+                    ratio = torch.exp(tot[0] / tot[1])
                 new_scale = torch.clamp(rho_scale * ratio, 1e-6, 1e6)
                 change = torch.maximum(new_scale / rho_scale,
                                        rho_scale / new_scale)
@@ -775,7 +818,7 @@ def _solve_impl(factors: QPFactors, data: QPData, q, state: QPState,
             stalled = (stall_ct >= 4) & (pri <= stall_rel * pri_sc)
         else:
             stalled = torch.zeros_like(conv_ok)
-        done = bool((conv_ok | stalled).all())
+        done = bool(_global_all((conv_ok | stalled).all()))
         it += check_every
 
     pri, dua, pri_sc, dua_sc = residuals(x, yA, yB, zA, zB)

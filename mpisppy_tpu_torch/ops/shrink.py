@@ -49,19 +49,34 @@ ROW_BLOCK = 4096
 
 # ---------------- device fixer counters ----------------
 
+def _over_ranks(mesh, t, how):
+    """``t`` reduced over a sharded mesh's ranks ("max", "all" or
+    "sum"); ``t`` itself without one."""
+    if mesh is None or mesh.size == 1:
+        return t
+    if how == "all":
+        return mesh.all_min(t.to(torch.uint8)).bool()
+    return mesh.all_max(t) if how == "max" else mesh.all_sum(t)
+
+
 def fixer_update(conv_count, lb_count, ub_count, fixed_mask, fixed_vals,
                  xbar, xsqbar, xn, slot_lb, slot_ub, tol, boundtol, nbc,
-                 lbc, ubc, imask):
+                 lbc, ubc, imask, mesh=None):
     """One ``miditer`` of the WW fixer as device ops, the host Fixer's
     pass exactly: variance test per slot, parked-at-bound streaks,
     lb > ub > nb precedence, integral snap, accumulate-only fixing.
     Returns the updated counters, mask and values plus the fixed-slot
-    count as a device scalar, the one number the host reads."""
-    var = torch.amax(torch.abs(xsqbar - xbar * xbar), dim=0)
+    count as a device scalar, the one number the host reads. On a
+    sharded ``mesh`` the per-slot tests reduce over every rank's rows,
+    so every rank fixes the same slots."""
+    var = _over_ranks(mesh, torch.amax(torch.abs(xsqbar - xbar * xbar),
+                                       dim=0), "max")
     agree = var <= tol * tol + 1e-15
     conv_count = torch.where(agree, conv_count + 1, 0)
-    at_lb = torch.all(torch.abs(xn - slot_lb) <= boundtol, dim=0)
-    at_ub = torch.all(torch.abs(xn - slot_ub) <= boundtol, dim=0)
+    at_lb = _over_ranks(mesh, torch.all(
+        torch.abs(xn - slot_lb) <= boundtol, dim=0), "all")
+    at_ub = _over_ranks(mesh, torch.all(
+        torch.abs(xn - slot_ub) <= boundtol, dim=0), "all")
     lb_count = torch.where(agree & at_lb, lb_count + 1, 0)
     ub_count = torch.where(agree & at_ub, ub_count + 1, 0)
     fix_lb = lb_count >= lbc
@@ -79,18 +94,29 @@ def fixer_update(conv_count, lb_count, ub_count, fixed_mask, fixed_vals,
 
 # ---------------- per-slot adaptive rho ----------------
 
-def per_slot_rho_update(rho, prob, xn, xbar, xbar_prev, mult, factor):
+def per_slot_rho_update(rho, prob, xn, xbar, xbar_prev, mult, factor,
+                        mesh=None):
     """Residual-balancing rho update PER NONANT SLOT: prim_k is the
     probability-weighted primal residual of slot k, dual_k the
     rho-scaled dual residual; slots with prim > mult*dual scale up,
     dual > mult*prim scale down. The factor is per slot, so a rho
     uniform across scenarios stays uniform and the single-factor prox
-    path keeps working. Returns (new_rho, stats), stats the packed (3,)
-    row [changed, prim_sum, dual_sum]."""
-    S = xn.shape[0]
-    prim = prob @ torch.abs(xn - xbar)
-    dual = torch.mean(rho, dim=0) \
-        * torch.sum(torch.abs(xbar - xbar_prev), dim=0) / S
+    path keeps working. On a sharded ``mesh`` the sums run over every
+    rank's rows (one all-reduce). Returns (new_rho, stats), stats the
+    packed (3,) row [changed, prim_sum, dual_sum]."""
+    K = xn.shape[1]
+    sums = _over_ranks(mesh, torch.cat([
+        prob @ torch.abs(xn - xbar), torch.sum(rho, dim=0),
+        torch.sum(torch.abs(xbar - xbar_prev), dim=0),
+        torch.tensor([float(xn.shape[0])], dtype=rho.dtype,
+                     device=rho.device)]), "sum")
+    prim, rho_sum, dx = sums[:K], sums[K:2 * K], sums[2 * K:3 * K]
+    S = sums[3 * K]
+    if mesh is None or mesh.size == 1:
+        dual = torch.mean(rho, dim=0) \
+            * torch.sum(torch.abs(xbar - xbar_prev), dim=0) / S
+    else:
+        dual = rho_sum / S * dx / S
     up = prim > mult * dual
     down = (dual > mult * prim) & ~up
     one = torch.ones_like(prim)
@@ -227,7 +253,7 @@ def expand_solution(x_c, fv, keep_cols, fixed_cols, n):
 
 
 def build_plan(qp_data: QPData, c, c0, nonant_idx, fixed_mask, fixed_vals,
-               bucket, *, dtype) -> ShrinkPlan | None:
+               bucket, *, dtype, mesh=None) -> ShrinkPlan | None:
     """The compaction plan for the CURRENT fixed set against the FULL
     system (plans are always derived from the full data, so transitions
     stay independent and exact).
@@ -256,8 +282,10 @@ def build_plan(qp_data: QPData, c, c0, nonant_idx, fixed_mask, fixed_vals,
     # rows that still touch a kept column IN ANY SCENARIO; rows whose
     # every nonzero is a fixed column reduce to constants and go with
     # them
-    keep_rows = np.flatnonzero(
-        _rows_touching(A, keep_dev).cpu().numpy())    # one (m,) read
+    # (on a sharded mesh, in any scenario of any rank)
+    keep_rows = np.flatnonzero(_over_ranks(
+        mesh, _rows_touching(A, keep_dev).to(torch.uint8), "max")
+        .cpu().numpy())    # one (m,) read
     if keep_rows.size == 0:
         return None
     fixed_dev = ids(fixed_cols)

@@ -202,10 +202,14 @@ def spin_the_wheel_processes(cfg: RunConfig, join_timeout=None,
     (``cfg.join_timeout`` / ``cfg.spoke_ready_timeout``)."""
     import os
 
-    from .vanilla import hub_dict, refuse_unported
+    from .vanilla import _not_ported, hub_dict, mesh_ranks, \
+        refuse_unported
 
     cfg.validate()
     refuse_unported(cfg)
+    if mesh_ranks(cfg, warn=False) > 1:
+        raise _not_ported("a sharded hub engine in the process wheels",
+                          "A8b")
     join_timeout = cfg.join_timeout if join_timeout is None \
         else join_timeout
     spoke_ready_timeout = cfg.spoke_ready_timeout \

@@ -73,3 +73,53 @@ def to_host(a, dtype=None) -> np.ndarray:
     if isinstance(a, torch.Tensor):
         a = a.detach().cpu().numpy()
     return np.asarray(a, dtype=dtype)
+
+
+_DISTRIBUTED_UP = False
+
+
+def maybe_init_distributed(coordinator) -> bool:
+    """Join a multi-process run behind the ``RunConfig.coordinator``
+    knob (the JAX package's utils/runtime.py:38): with ``coordinator``
+    set, start the ``torch.distributed`` process group so
+    ``parallel/mesh.make_mesh()`` builds the mesh over every rank of
+    the run. Idempotent; returns True once the group is up (now or
+    earlier), False without a coordinator.
+
+    ``coordinator`` keeps the JAX package's keys: ``address``
+    ("host:port" of process 0, required), ``num_processes``,
+    ``process_id``, optional ``local_device_ids``. The mapping: a JAX
+    process is a host driving all of its devices; a port process is ONE
+    rank driving one card. ``num_processes`` is the world size (every
+    rank of every host), ``process_id`` this rank, and
+    ``local_device_ids`` the cards of this host the host's ranks use,
+    in local-rank order (this rank takes entry ``process_id % len``).
+    The backend follows parallel/launch.choose_backend: NCCL when each
+    rank has its own card, gloo otherwise."""
+    global _DISTRIBUTED_UP
+    if not coordinator:
+        return False
+    import torch.distributed as dist
+    if _DISTRIBUTED_UP or dist.is_initialized():
+        _DISTRIBUTED_UP = True
+        return True
+    import os
+
+    from ..parallel.launch import choose_backend
+    world = int(coordinator.get("num_processes") or 1)
+    rank = int(coordinator.get("process_id") or 0)
+    ids = coordinator.get("local_device_ids")
+    if ids:
+        local = int(ids[rank % len(ids)])
+        os.environ["LOCAL_RANK"] = str(local)
+        backend = "nccl" if torch.cuda.is_available() \
+            and len(set(ids)) == len(ids) else "gloo"
+        if backend == "nccl":
+            torch.cuda.set_device(local)
+    else:
+        backend = choose_backend(world)
+    dist.init_process_group(backend,
+                            init_method=f"tcp://{coordinator['address']}",
+                            rank=rank, world_size=world)
+    _DISTRIBUTED_UP = True
+    return True

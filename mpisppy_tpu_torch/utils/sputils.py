@@ -8,9 +8,10 @@ finishes, and finalize.
 Process-grid redesign: the reference factors MPI ranks into a
 strata x cylinder grid (ref. sputils.py:133-151 make_comms). Here each
 cylinder is a host thread driving batched device computation; the
-"cylinder_comm" axis (scenario parallelism) lives inside each engine as the
-sharded scenario axis of its batch, and the "strata_comm" axis is the
-window star wired by Hub.make_windows. The write-id/kill protocol is
+"cylinder_comm" axis (scenario parallelism) is the hub engine's
+scenario mesh (parallel/mesh: one process per rank, rank 0 holding the
+cylinders), and the "strata_comm" axis is the window star wired by
+Hub.make_windows. The write-id/kill protocol is
 identical, so cylinder asynchrony semantics carry over.
 """
 
@@ -119,7 +120,11 @@ def _check_dict(d, keys, what):
 
 def spin_the_wheel(hub_dict, list_of_spoke_dicts=(), spin_timeout=None,
                    register_hub=None):
-    """Run one hub + N spokes concurrently; returns a WheelResult.
+    """Run one hub + N spokes concurrently; returns a WheelResult. With
+    a hub engine sharded over a mesh (``opt_kwargs["mesh"]``, every rank
+    calls this with the same dicts) rank 0 runs the wheel and returns
+    its WheelResult; the other ranks follow the hub loop and return
+    None.
 
     hub_dict:   {"hub_class", "hub_kwargs", "opt_class", "opt_kwargs"}
     spoke dict: {"spoke_class", "spoke_kwargs", "opt_class", "opt_kwargs"}
@@ -134,6 +139,15 @@ def spin_the_wheel(hub_dict, list_of_spoke_dicts=(), spin_timeout=None,
         _check_dict(sd, ("spoke_class", "opt_class"), "spoke dict")
 
     hub_opt = hub_dict["opt_class"](**hub_dict.get("opt_kwargs", {}))
+    mesh = getattr(hub_opt, "shard_mesh", None)
+    if mesh is not None and mesh.rank != 0:
+        # a sharded hub engine: rank 0 runs the cylinders below, every
+        # other rank only the hub engine's loop, in step with rank 0's
+        # (cylinders/hub.MeshFollower); its spokes are never built here
+        from ..cylinders.hub import MeshFollower
+        hub_opt.spcomm = MeshFollower(hub_opt)
+        hub_dict["hub_class"].follower_main(hub_opt)
+        return None
     spokes = []
     for sd in list_of_spoke_dicts:
         opt = sd["opt_class"](**sd.get("opt_kwargs", {}))
@@ -221,3 +235,20 @@ def spin_the_wheel(hub_dict, list_of_spoke_dicts=(), spin_timeout=None,
     spoke_results = [None if f"spoke{i}" in stuck else sp.finalize()
                      for i, sp in enumerate(spokes)]
     return WheelResult(hub, spokes, spoke_results)
+
+
+def wheel_result(wheel):
+    """The CLI's result dict of a finished wheel: never-established
+    bounds report as null, not JSON-invalid Infinity."""
+    from .. import obs
+    return {"outer_bound": obs.finite_or_none(wheel.hub.BestOuterBound),
+            "inner_bound": obs.finite_or_none(wheel.best_inner_bound)}
+
+
+def wheel_on_mesh(mesh, cfg):
+    """One rank of a wheel whose hub engine is sharded over ``mesh``
+    (parallel/launch.launch runs it on every rank): rank 0 returns the
+    wheel's result dict, the other ranks None."""
+    from .vanilla import wheel_dicts
+    wheel = spin_the_wheel(*wheel_dicts(cfg, mesh=mesh))
+    return None if wheel is None else wheel_result(wheel)

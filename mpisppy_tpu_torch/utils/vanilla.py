@@ -7,7 +7,13 @@ consumes, one factory per cylinder kind. Every cylinder gets its OWN
 engine over one shared host batch, on the run's ``device`` (None = the
 CUDA device). What the port does not run yet raises, naming its
 ROADMAP.md item: the cross-scenario spoke, scenario streaming, the
-scenario-axis mesh, checkpoints and the live plane.
+FWPH spoke beside a sharded hub, checkpoints and the live plane.
+
+Scenario-axis mesh (``mesh_devices``): the PH and APH hub engines shard
+over the ranks of a ``parallel/mesh.Mesh`` (``hub_dict(cfg, mesh=...)``
+on every rank; ``__main__.run`` starts the ranks); the spokes stay
+unsharded on rank 0. ``mesh_ranks`` resolves the count with the JAX
+package's semantics.
 """
 
 from __future__ import annotations
@@ -38,13 +44,48 @@ def refuse_unported(cfg: RunConfig):
     if cfg.algo.scenario_source != "resident":
         raise _not_ported(f"scenario_source={cfg.algo.scenario_source!r}",
                           "A12")
-    if cfg.mesh_devices is not None or cfg.coordinator is not None:
-        raise _not_ported("the scenario-axis device mesh", "A8")
+    if mesh_ranks(cfg, warn=False) > 1 \
+            and any(sp.kind == "fwph" for sp in cfg.spokes):
+        raise _not_ported("the FWPH spoke beside a sharded hub", "A8b")
     if cfg.telemetry_dir or cfg.status_port is not None:
         raise _not_ported("telemetry files and the live status plane",
                           "A13")
     if cfg.checkpoint_dir or cfg.resume_from:
         raise _not_ported("checkpoints and resumes", "A14")
+
+
+def mesh_ranks(cfg: RunConfig, warn=True) -> int:
+    """Ranks of the hub engine's scenario mesh (1: unsharded), with the
+    JAX package's semantics (its utils/vanilla.py:171-200). ``None``
+    is no mesh; 0 means every visible card; a count above the visible
+    cards warns and is clipped. On the CPU a rank is a process, not a
+    device: a count is taken as given and 0 means one rank. With a
+    ``coordinator`` the world is the coordinator's ``num_processes``.
+    The L-shaped hub keeps the unsharded path and warns that the flag
+    is ignored."""
+    import warnings
+
+    if cfg.mesh_devices is None and cfg.coordinator is None:
+        return 1
+    if cfg.hub not in ("ph", "aph"):
+        if warn:
+            warnings.warn(
+                f"mesh_devices is ignored for this wheel (hub="
+                f"{cfg.hub!r}): scenario-axis sharding covers the ph/aph "
+                "hubs only", RuntimeWarning, stacklevel=2)
+        return 1
+    if cfg.coordinator is not None:
+        return int(cfg.coordinator.get("num_processes") or 1)
+    n = int(cfg.mesh_devices)
+    if str(cfg.device or "cuda").startswith("cpu"):
+        return max(n, 1)
+    n_vis = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n > n_vis and warn:
+        warnings.warn(
+            f"mesh_devices={n} exceeds the {n_vis} visible card(s) — "
+            f"sharding over all {n_vis} (multi-host runs need the "
+            "coordinator knob)", RuntimeWarning, stacklevel=2)
+    return max(min(n, n_vis) if n else n_vis, 1)
 
 
 def _pop_dtype(options):
@@ -96,10 +137,12 @@ def build_batch_for(cfg: RunConfig):
     return batch
 
 
-def hub_dict(cfg: RunConfig, batch=None):
+def hub_dict(cfg: RunConfig, batch=None, mesh=None):
     """ref. vanilla.py:54 ph_hub / aph_hub / lshaped_hub. ``batch``:
     optionally a prebuilt batch shared across cylinders (engines never
-    mutate the host arrays; wheel_dicts passes one build to all)."""
+    mutate the host arrays; wheel_dicts passes one build to all).
+    ``mesh``: this rank's parallel/mesh.Mesh, which shards a PH or APH
+    hub engine (its device is the engine's)."""
     from ..core.aph import APH
     from ..core.lshaped import LShapedMethod
     from ..core.ph import PH
@@ -124,6 +167,9 @@ def hub_dict(cfg: RunConfig, batch=None):
                   "options": options, "device": cfg.device, **dtype_kw}
     opt_cls, hub_cls = {"ph": (PH, PHHub), "aph": (APH, APHHub),
                         "lshaped": (LShapedMethod, LShapedHub)}[cfg.hub]
+    if mesh is not None and mesh.size > 1 and cfg.hub in ("ph", "aph"):
+        opt_kwargs["mesh"] = mesh
+        opt_kwargs.pop("device")
     return {"hub_class": hub_cls, "hub_kwargs": hub_kwargs,
             "opt_class": opt_cls, "opt_kwargs": opt_kwargs}
 
@@ -184,11 +230,13 @@ def spoke_dict(cfg: RunConfig, sp: SpokeConfig, batch=None):
                            **dtype_kw}}
 
 
-def wheel_dicts(cfg: RunConfig):
+def wheel_dicts(cfg: RunConfig, mesh=None):
     """The full (hub_dict, spoke_dicts) pair for spin_the_wheel. The
     batch is built ONCE and shared by every cylinder (engines read the
     host arrays, they never write them), and so is its device cache
-    (core/spbase): the shipped constraint matrix and bound vectors."""
+    (core/spbase): the shipped constraint matrix and bound vectors.
+    ``mesh``: this rank's mesh, for a sharded hub engine; on ranks
+    other than 0 no spoke dict is built (those ranks run no spoke)."""
     cfg.validate()
     refuse_unported(cfg)
     obs.event("wheel.build", {"model": cfg.model,
@@ -196,5 +244,11 @@ def wheel_dicts(cfg: RunConfig):
                               "hub": cfg.hub,
                               "spokes": [sp.kind for sp in cfg.spokes]})
     batch = build_batch_for(cfg)
-    spoke_ds = [spoke_dict(cfg, sp, batch=batch) for sp in cfg.spokes]
-    return hub_dict(cfg, batch=batch), spoke_ds
+    follower = mesh is not None and mesh.size > 1 and mesh.rank != 0
+    spoke_ds = [] if follower else [spoke_dict(cfg, sp, batch=batch)
+                                    for sp in cfg.spokes]
+    if mesh is not None and not follower:
+        # the spokes run on rank 0's card
+        for sd in spoke_ds:
+            sd["opt_kwargs"]["device"] = mesh.device
+    return hub_dict(cfg, batch=batch, mesh=mesh), spoke_ds

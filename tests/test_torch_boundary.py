@@ -1,5 +1,5 @@
-"""The port's package boundary: mpisppy_tpu_torch and chip_smoke.py
-import with JAX poisoned, hold no import of jax or mpisppy_tpu, and
+"""The port's package boundary: mpisppy_tpu_torch, chip_smoke.py and
+trace_mesh_gap.py import with JAX poisoned, hold no import of jax or mpisppy_tpu, and
 refuse to run an entry point on the CPU unless asked to."""
 
 import ast
@@ -69,7 +69,11 @@ def test_every_module_imports_with_jax_poisoned():
               "mpisppy_tpu_torch.extensions.norm_rho_updater",
               "mpisppy_tpu_torch.extensions.xhatclosest",
               "mpisppy_tpu_torch.extensions.diagnoser",
-              "mpisppy_tpu_torch.extensions.avgminmaxer"):
+              "mpisppy_tpu_torch.extensions.avgminmaxer",
+              # scenario-axis sharding
+              "mpisppy_tpu_torch.parallel",
+              "mpisppy_tpu_torch.parallel.mesh",
+              "mpisppy_tpu_torch.parallel.launch"):
         assert m in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
@@ -77,6 +81,7 @@ def test_every_module_imports_with_jax_poisoned():
             "import importlib\n"
             + "".join(f"importlib.import_module({m!r})\n" for m in mods)
             + "import chip_smoke\n"
+            "import trace_mesh_gap\n"
             "print('PORTFREE')\n")
     out = subprocess.run([sys.executable, "-c", code],
                          env={**os.environ, "PYTHONPATH": REPO},
@@ -106,7 +111,8 @@ def test_no_jax_or_reference_import_anywhere():
 
 
 def _python_files():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, n) for n in ("chip_smoke.py",
+                                             "trace_mesh_gap.py")]
     for dirpath, _, names in os.walk(PKG):
         files += [os.path.join(dirpath, n) for n in names
                   if n.endswith(".py")]

@@ -515,7 +515,8 @@ def test_unported_branches_raise(case, message):
     data, A9b, here) they raise, naming the precision. Problem shrinking
     runs since its slice landed (A9): each option builds the engine and
     solves, compaction only with the device fixer (the JAX package's
-    ValueError otherwise). The dispatch-masked solve runs since APH
+    ValueError otherwise). The device mesh runs since A8 landed: a
+    one-rank mesh solves as the unsharded engine does. The dispatch-masked solve runs since APH
     landed: it solves only the ids given, and refuses the W/x̄ update
     (the JAX package's ValueError)."""
     opts = {"subproblem_chunk": 3}
@@ -535,7 +536,17 @@ def test_unported_branches_raise(case, message):
         assert ph._shrink_status is not None and ph.x is not None
         return
     elif case == "mesh":
-        kw["mesh"] = object()
+        # runs since its slice landed (A8): a one-rank mesh is the
+        # unsharded engine on the mesh's device
+        from mpisppy_tpu_torch.parallel.mesh import make_mesh
+        ph = PHBase(_port_uc(), opts, mesh=make_mesh(device="cpu"))
+        ph.solve_loop(w_on=False, prox_on=False)
+        ref = PHBase(_port_uc(), opts, device="cpu")
+        ref.solve_loop(w_on=False, prox_on=False)
+        assert ph._shard_ops is None and ph.device.type == "cpu"
+        assert torch.equal(ph.xbar, ref.xbar)
+        assert ph.phase_timing(False)["mode"] == "host"
+        return
     elif case == "stream":
         opts["scenario_source"] = "streamed"
     else:

@@ -203,7 +203,7 @@ def test_cli_aph_hub(capsys, monkeypatch):
     (["farmer", "--with-cross-scenario"], "A11c"),
     (["farmer", "--scenario-source", "streamed",
       "--subproblem-chunk", "2"], "A12"),
-    (["farmer", "--mesh-devices", "2"], "A8"),
+    (["farmer", "--mesh-devices", "2", "--with-fwph"], "A8"),
     (["farmer", "--telemetry-dir", "t"], "A13"),
     (["farmer", "--status-port", "0"], "A13"),
     (["farmer", "--checkpoint-dir", "c"], "A14"),
