@@ -154,10 +154,23 @@
    and holds them against the host HiGHS LP of the same EF
    (tests/test_models.py's band: rel 2e-3, abs 2e-2) and -108390
    (rel 1e-4);
+20. runs PH from both scenario sources of mpisppy_tpu_torch/stream on
+   the reference UC synth family (``stream_path``, cells
+   uc-ref-S16-chunk8-synth and uc-ref-S16-chunk8-streamed: S = 16 in
+   chunks of 8 built by utils/vanilla at synth_seed 0, PH_OPTS with one
+   prox-on iteration): the synthesized source makes each chunk on the
+   card, the streamed one copies the family, materialized on the card,
+   from pinned host memory on a side stream; checks that the two runs
+   are bit-equal, that every synthesized chunk equals the materialized
+   rows, the launch plan, the block against its plain version at the
+   first synthesized chunk, the profiler's host-to-device records of
+   the prox-on iteration (nothing of a scenario row's size when
+   synthesized; the booked bytes, pinned, each chunk's copy inside the
+   previous chunk's solve interval when streamed) and int8 staging;
 then prints one {"kernels": [...]} line whose launches count phases 3,
-5, 10, 11, 12, 13, 15, 16, 17 and 19 (every rank's) and whose
-max_abs_err is the largest of phases 4, 5, 10, 11, 12, 13, 15, 16, 17
-and 19.
+5, 10, 11, 12, 13, 15, 16, 17, 19 (every rank's) and 20 and whose
+max_abs_err is the largest of phases 4, 5, 10, 11, 12, 13, 15, 16, 17,
+19 and 20.
 The last line is {"ok": true, "device": {...}}; any failed check raises.
 """
 
@@ -184,9 +197,9 @@ SLICE_INSTANCE = dict(num_gens=90, num_hours=48, min_up_down=True,
 SLICE_SCENARIOS = 10
 SLICE_BUDGET = 1500
 # the main path's PH options (a prox-on solve: the whole budget at fixed
-# rho in the block, then the finisher without the polish); 2 prox-on
-# iterations (3 until a cut in depth for the script's time)
-PH_OPTS = {"defaultPHrho": 100.0, "PHIterLimit": 2, "convthresh": -1.0,
+# rho in the block, then the finisher without the polish); 1 prox-on
+# iteration (3, then 2, until cuts in depth for the script's time)
+PH_OPTS = {"defaultPHrho": 100.0, "PHIterLimit": 1, "convthresh": -1.0,
            "subproblem_kernel_mode": "fused",
            "subproblem_kernel_backend": "cuda",
            "subproblem_max_iter": SLICE_BUDGET,
@@ -229,11 +242,11 @@ XHAT_ORACLE = {"xhat_oracle_candidates": True,
 
 # APH (phases 11 and 12): the chunked path's batch under φ-dispatch of
 # a quarter of the scenarios (10 of 40: one 16-row chunk call per
-# partial iteration) for APH_ITERS iterations (5 until a cut in depth
-# for the script's time), and the sharded wheel at S = 4 (cut from the
+# partial iteration) for APH_ITERS iterations (5, then 3, until cuts in
+# depth for the script's time), and the sharded wheel at S = 4 (cut from the
 # chunked path's 40 for the run's time; the widths stay the reference
 # instance's)
-APH_ITERS = 3
+APH_ITERS = 2
 APH_FRAC = 0.25
 APH_SHARD_SCENARIOS = 4
 APH_SHARDS = 2
@@ -261,12 +274,13 @@ EF_BUDGET = 3000
 # iterates until the spoke starts its last outer iteration (at most
 # FWPH_HUB_ITERS iterations). Bundles (phase 16):
 # that batch in BUNDLES bundles of 2 scenarios (n = 17,472, m = 52,032
-# per bundle), PH for BUNDLE_ITERS prox-on iterations (a cut in depth)
+# per bundle), PH for BUNDLE_ITERS prox-on iterations (a cut in depth:
+# 2 until the streaming phase needed the time)
 FWPH_ITERS = 1
 FWPH_FW_ITERS = 1
 FWPH_HUB_ITERS = 40
 BUNDLES = 5
-BUNDLE_ITERS = 2
+BUNDLE_ITERS = 1
 # problem shrinking (phase 17): the slice's S = 10 batch with bench.py's
 # hub settings (bench.py:901-903: the device fixer after 4 agreeing
 # iterations at tol 1e-3, compaction at the 0.25 / 0.5 / 0.75 buckets);
@@ -1009,9 +1023,11 @@ def _scaling_operands(ph, states, ci):
 def block_scaling(ops, steps=20, reps=2):
     """Phase 6: one ``steps``-step block call at full width for each row
     count in SCALING_ROWS, the chunk's rows tiled to it. Prints ms per
-    step and per scenario-step beside the groups on grid.y and the
-    one-pass streaming time of groups x (2A + F) per step."""
+    step and per scenario-step beside the groups on grid.y, the
+    one-pass streaming time of groups x (2A + F) per step, the plain
+    version's and the library's time."""
     import torch
+    from mpisppy_tpu_torch.ops import qp_solver as T
     from mpisppy_tpu_torch.ops.kernels import admm_block
     factors, d, q, st = ops
     S0 = st.x.shape[0]
@@ -1032,6 +1048,11 @@ def block_scaling(ops, steps=20, reps=2):
         ms = cuda_ms(lambda: admm_block.fused_admm_block(
             factors, d_s, q_s, st_s, n_steps=steps, sigma=factors.sigma,
             scen_tile=0), reps)
+        ops_s = block_operands(factors, d_s, q_s, st_s)
+        kw = dict(sigma=factors.sigma, n_steps=steps, alpha=ALPHA,
+                  l_inv_pair=isinstance(st.L, T.LInv))
+        plain_ms = cuda_ms(lambda: admm_block.admm_block_plain(*ops_s,
+                                                                **kw), reps)
         A, F = factors.A_s, st.L
         w = torch.randn(S, m, dtype=A.dtype, device=A.device)
         v = torch.randn(S, n, dtype=A.dtype, device=A.device)
@@ -1054,6 +1075,7 @@ def block_scaling(ops, steps=20, reps=2):
                      "ms_per_scenario_step": ms / steps / S,
                      "groups": groups,
                      "streaming_ms_per_step": stream_ms,
+                     "plain_ms_per_step": plain_ms / steps,
                      "library_ms_per_step": lib_ms / steps,
                      "bound_ms_per_step": max(bytes_ms, ops_ms),
                      "bound_by": "bytes" if bytes_ms >= ops_ms
@@ -3284,6 +3306,397 @@ def ef_path(dev):
     return failures
 
 
+# ---------------- phase 20: scenario streaming ----------------
+
+# the streaming path (phase 20, cells uc-ref-S16-chunk8-synth and
+# uc-ref-S16-chunk8-streamed): the UC synth family at the slice's
+# widths, built through utils/vanilla's batch path at the CLI's default
+# synth_seed, S = STREAM_SCENARIOS in chunks of STREAM_CHUNK (two
+# chunks: chunk 1 crosses the bus while chunk 0 solves), PH_OPTS with
+# STREAM_ITERS prox-on iterations
+STREAM_SCENARIOS = 16
+STREAM_CHUNK = 8
+STREAM_SEED = 0
+STREAM_ITERS = 1
+# the int8 staging check's gate: at the CLI's --stream-int8-tol default
+# (1e-3) the gate keeps every varying field of this family in f64 (the
+# wind's range over 254 levels exceeds it, as measured on an H100 80GB
+# HBM3 at 700 W), so the check packs at 1e-2
+STREAM_INT8_TOL = 1e-2
+
+
+class _ProfiledIteration(IterLog):
+    """IterLog that runs torch.profiler over prox-on iteration 1 (from
+    the end of iter 0 to the end of iteration 1's solve pass) and keeps
+    the scenario source's status on both sides of it."""
+
+    def __init__(self, trace_path):
+        super().__init__()
+        self.trace_path = trace_path
+        self.prof = None
+        self.before = self.after = None
+
+    def post_iter0(self, ph):
+        import torch
+        super().post_iter0(ph)
+        _sync()
+        self.before = ph._stream_source.status()
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        self.prof = torch.profiler.profile(activities=acts)
+        self.prof.start()
+        self.t = time.perf_counter()
+
+    def miditer(self, ph):
+        if ph._iter == 1 and self.prof is not None:
+            _sync()
+            self.prof.stop()
+            self.after = ph._stream_source.status()
+            self.prof.export_chrome_trace(self.trace_path)
+            self.prof = None
+        super().miditer(ph)
+
+
+def _device_records(trace_path):
+    """(kernels, HtoD copies) of a chrome trace: kernels as (name, start
+    us, end us), copies as (start us, end us, bytes, pinned)."""
+    with open(trace_path) as fh:
+        events = json.load(fh).get("traceEvents", [])
+    kernels, copies = [], []
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        cat, name = e.get("cat", ""), e.get("name", "")
+        t0, t1 = float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0))
+        if cat == "kernel":
+            kernels.append((name, t0, t1))
+        elif cat == "gpu_memcpy" and "HtoD" in name:
+            copies.append((t0, t1, int(e.get("args", {}).get("bytes", 0)),
+                           "Pinned" in name))
+    kernels.sort(key=lambda k: k[1])
+    copies.sort()
+    return kernels, copies
+
+
+def _block_calls(kernels):
+    """(start, end) of each block call in the trace: its w_prologue
+    kernel to its finalize kernel."""
+    starts = [k[1] for k in kernels if "w_prologue" in k[0]]
+    ends = [k[2] for k in kernels if "finalize_kernel" in k[0]]
+    return list(zip(starts, ends))
+
+
+def _stream_family(dev):
+    """(synthesized batch, spec, the same family materialized on the card
+    as a resident batch, seconds): the synthesized batch through
+    utils/vanilla.build_batch_for, the twin from the same spec's values
+    generated on ``dev``."""
+    import dataclasses
+
+    import numpy as np
+    from mpisppy_tpu_torch.stream.synth import materialize
+    from mpisppy_tpu_torch.utils.config import AlgoConfig, RunConfig
+    from mpisppy_tpu_torch.utils.vanilla import build_batch_for
+
+    cfg = RunConfig(model="uc", num_scens=STREAM_SCENARIOS,
+                    model_kwargs=dict(SLICE_INSTANCE,
+                                      synth_seed=STREAM_SEED),
+                    algo=AlgoConfig(scenario_source="synthesized"),
+                    hub_options={"subproblem_chunk": STREAM_CHUNK},
+                    device=str(dev))
+    cfg.validate()
+    t0 = time.perf_counter()
+    b_syn = build_batch_for(cfg)
+    spec = b_syn._synth_spec
+    vecs = {f: np.array(getattr(b_syn, f)) for f in ("l", "u", "lb", "ub")}
+    for fname, blocks in materialize(spec, b_syn.S, device=dev).items():
+        for start, stop, vals in blocks:
+            vecs[fname][:, start:stop] = vals
+    b_res = dataclasses.replace(b_syn, **vecs)
+    return b_syn, spec, b_res, time.perf_counter() - t0
+
+
+def _stream_run(dev, batch, opts, trace_path):
+    """One PH run of phase 20. Returns the engine, its result, the
+    profiling IterLog, launches, demotions, counters and peak GB."""
+    import torch
+    from mpisppy_tpu_torch import obs
+    from mpisppy_tpu_torch.core.ph import PH
+    from mpisppy_tpu_torch.ops.kernels import admm_block
+
+    on_card = torch.device(dev).type == "cuda"
+    log_ = _ProfiledIteration(trace_path)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    ph = PH(batch, opts, device=dev, extensions=log_)
+    obs.configure()
+    launches0 = admm_block.LAUNCHES
+    log_.t0 = time.perf_counter()
+    result = ph.ph_main()
+    _sync()
+    launches = admm_block.LAUNCHES - launches0
+    counters = obs.counters_snapshot()
+    demotions = obs.events("kernel.cuda_demotion")
+    obs.shutdown()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    return ph, result, log_, launches, demotions, counters, peak_gb
+
+
+def _int8_staging_check(dev, b_res):
+    """Quantize the materialized family (the streamed source's int8 store
+    behind its gate), stage every chunk through the pinned side-stream
+    pipeline with dequantization on the card, and hold the blocks
+    against the exact rows at the gate's tolerance, relative to
+    1 + |value|. No PH run. Returns (row, failures)."""
+    import numpy as np
+    import torch
+    from mpisppy_tpu_torch.stream.quant import _reconstruct_f32
+    from mpisppy_tpu_torch.stream.source import StreamedSource
+
+    src = StreamedSource(b_res, torch.float64, dev, int8=True,
+                         int8_tol=STREAM_INT8_TOL)
+    ids = [np.arange(i, i + STREAM_CHUNK)
+           for i in range(0, b_res.S, STREAM_CHUNK)]
+    src.bind(("int8",), ids)
+    kinds = {f: k for f, (k, _) in src._store.items()}
+    worst, failures = {}, []
+    src.begin_pass()
+    for ci, rows in enumerate(ids):
+        blk = src.chunk(ci)
+        for f in src.fields:
+            exact = np.asarray(getattr(b_res, f))[rows]
+            got = blk[f].cpu().numpy()
+            fin = np.isfinite(exact)
+            if not np.array_equal(np.isfinite(got), fin):
+                failures.append(f"int8 staging: {f} non-finite pattern")
+                continue
+            err = float((np.abs(got[fin] - exact[fin])
+                         / (1.0 + np.abs(exact[fin]))).max(initial=0.0))
+            worst[f] = max(worst.get(f, 0.0), err)
+            if kinds[f] == "int8":
+                host = _reconstruct_f32(src._store[f][1], rows)
+                if not np.array_equal(got, host):
+                    failures.append(f"int8 staging: {f} chunk {ci} differs"
+                                    " from the host reconstruction")
+    src.close()
+    for f, e in worst.items():
+        if not e <= STREAM_INT8_TOL:
+            failures.append(f"int8 staging: {f} off by {e:.3e} (gate "
+                            f"{STREAM_INT8_TOL})")
+    if "int8" not in kinds.values():
+        failures.append("int8 staging: the gate packed no field")
+    return {"kinds": kinds, "max_rel_err": worst,
+            "host_bytes": src.host_nbytes(),
+            "f64_bytes": sum(np.asarray(getattr(b_res, f)).nbytes
+                             for f in src.fields),
+            "fallbacks": src.status()["int8_fallbacks"]}, failures
+
+
+def stream_path(dev):
+    """Phase 20: the synthesized and the streamed scenario source on the
+    reference UC synth family (cells uc-ref-S16-chunk8-synth and
+    uc-ref-S16-chunk8-streamed), PH_OPTS with STREAM_ITERS prox-on
+    iterations, each chunk solved by the block. Checks: the two runs'
+    x̄, W, conv, Eobjective and trivial bound bit-equal; every
+    synthesized chunk's l/u/lb/ub/c rows bit-equal to the materialized
+    family's; iter 0 under the gate; block launches by the plan (one
+    call per chunk and solve), no demotion, one gate sync per call; the
+    block against its plain version at the first synthesized chunk's
+    prox-on operands (compare); the profiler's HtoD records of prox-on
+    iteration 1: none of a scenario row's size for the synthesized run,
+    the booked stream.bytes_shipped delta exactly and from pinned memory
+    for the streamed run, with chunk k's solve-pass copy inside chunk
+    k-1's solve interval (from the end of chunk k-2's block call, or of
+    chunk 0's copy, to the end of chunk k-1's block call); and the int8
+    staging check. Returns (launches, largest difference, failures)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from mpisppy_tpu_torch.core.ph import _ph_assemble
+    from mpisppy_tpu_torch.ops.kernels import admm_block
+
+    b_syn, spec, b_res, t_family = _stream_family(dev)
+    base = {**PH_OPTS, "PHIterLimit": STREAM_ITERS,
+            "subproblem_chunk": STREAM_CHUNK}
+    tmp = tempfile.mkdtemp(prefix="stream_trace_")
+    failures, rows, ends = [], {}, {}
+    n_chunks = -(-STREAM_SCENARIOS // STREAM_CHUNK)
+    per_call = admm_block.admm_block_launches(SLICE_BUDGET, False)
+    launches_all = 0
+    row_bytes = 8 * b_syn.n
+    # the streamed run first: its engine and its copy of A go before the
+    # synthesized run, so each run's peak is its own
+    for name, batch, extra in (
+            ("streamed", b_res, {"scenario_source": "streamed"}),
+            ("synthesized", b_syn, {"scenario_source": "synthesized",
+                                    "synth_spec": spec})):
+        trace = os.path.join(tmp, f"{name}.json")
+        ph, result, it_log, launches, demotions, counters, peak_gb = \
+            _stream_run(dev, batch, {**base, **extra}, trace)
+        launches_all += launches
+        ends[name] = {"xbar": ph.xbar.cpu(), "W": ph.W.cpu(),
+                      "conv": ph.conv, "eobjective": result[1],
+                      "trivial_bound": ph.trivial_bound}
+        solves = 1 + len(it_log.rows)
+        expected = n_chunks * solves * per_call
+        pri0 = float(ph._qp_states[False].pri_rel.max())
+        if pri0 >= 1e-3:
+            failures.append(f"{name}: iter-0 max pri_rel {pri0:.3e}")
+        if launches != expected:
+            failures.append(f"{name}: {launches} block kernels launched, "
+                            f"expected {expected}")
+        if demotions:
+            failures.append(f"{name}: kernel demotion booked: {demotions}")
+        timing = {str(k): ph.phase_timing(k) for k in (False, True)}
+        for k, t in timing.items():
+            if t["gate_d2h_syncs_per_call"] != 1.0:
+                failures.append(f"{name} mode {k}: "
+                                f"{t['gate_d2h_syncs_per_call']} gate "
+                                "syncs per call")
+        kernels, copies = _device_records(trace)
+        calls = _block_calls(kernels)
+        row = {"ph_s_per_iteration": [r["seconds"] for r in it_log.rows],
+               "iterations": it_log.rows, "iter0_max_pri_rel": pri0,
+               "result": list(result), "launches": launches,
+               "expected_launches": expected, "peak_gb": peak_gb,
+               "prefetch_stalls": counters.get("stream.prefetch_stalls",
+                                               0),
+               "phase_seconds": {k: t["seconds_per_call"]
+                                 for k, t in timing.items()},
+               "profiled": {"kernels": len(kernels),
+                            "block_calls": len(calls),
+                            "htod_copies": len(copies),
+                            "htod_bytes": sum(c[2] for c in copies)}}
+        if not kernels:
+            failures.append(f"{name}: the profiler recorded no kernel in "
+                            "prox-on iteration 1")
+        if len(calls) != n_chunks:
+            failures.append(f"{name}: {len(calls)} block calls profiled "
+                            f"in iteration 1, expected {n_chunks}")
+        big = [c for c in copies if c[2] >= row_bytes and not c[3]]
+        if name == "synthesized":
+            big += [c for c in copies if c[2] >= row_bytes]
+            if big:
+                failures.append(f"synthesized: {len(big)} HtoD copies of "
+                                "a scenario row's size or more in "
+                                "iteration 1")
+        else:
+            booked = it_log.after["bytes_shipped"] \
+                - it_log.before["bytes_shipped"]
+            pinned = [c for c in copies if c[3]]
+            row["htod_pinned_bytes"] = sum(c[2] for c in pinned)
+            row["booked_bytes_shipped"] = booked
+            if row["htod_pinned_bytes"] != booked:
+                failures.append(f"streamed: the profiler's pinned HtoD "
+                                f"bytes {row['htod_pinned_bytes']} differ"
+                                f" from the booked {booked}")
+            if big:
+                failures.append(f"streamed: {len(big)} pageable HtoD "
+                                "copies of a scenario row's size")
+            # the copies group by chunk: the prox-on mode's cold-state
+            # fetch of chunk 0, the solve pass, the objective pass
+            src = ph._stream_source
+            parts = len(src._host_parts(src._np_ids[0], src._store,
+                                        src._tmpl_dev))
+            groups = [pinned[i:i + parts]
+                      for i in range(0, len(pinned), parts)]
+            row["copy_groups"] = len(groups)
+            if len(groups) != 1 + 2 * n_chunks:
+                failures.append(f"streamed: {len(groups)} copy groups, "
+                                f"expected {1 + 2 * n_chunks}")
+            else:
+                solve_pass = groups[1:1 + n_chunks]
+                row["h2d_ms_per_chunk"] = [
+                    sum(c[1] - c[0] for c in g) / 1e3 for g in solve_pass]
+                overlap = []
+                for k in range(1, n_chunks):
+                    g = solve_pass[k]
+                    lo = calls[k - 2][1] if k >= 2 \
+                        else solve_pass[0][-1][1]
+                    hi = calls[k - 1][1]
+                    c0, c1 = g[0][0], g[-1][1]
+                    overlap.append({
+                        "chunk": k, "copy_us": c1 - c0,
+                        "after_window_start_us": c0 - lo,
+                        "before_window_end_us": hi - c1,
+                        "after_block_start_us": c0 - calls[k - 1][0],
+                        "before_next_block_us": calls[k][0] - c1})
+                    if not (lo <= c0 and c1 <= hi):
+                        failures.append(
+                            f"streamed: chunk {k}'s copy "
+                            f"[{c0:.1f}, {c1:.1f}] us lies outside chunk "
+                            f"{k - 1}'s solve interval [{lo:.1f}, "
+                            f"{hi:.1f}]")
+                row["copy_in_solve_interval"] = overlap
+        rows[name] = row
+        if name == "streamed":
+            ph.close_stream()
+            del ph
+            batch.__dict__.pop("_dev_cache", None)
+            gc.collect()
+            if torch.device(dev).type == "cuda":
+                torch.cuda.empty_cache()
+    syn = ph
+    a, b = ends["synthesized"], ends["streamed"]
+    same = {k: (torch.equal(a[k], b[k]) if k in ("xbar", "W")
+                else a[k] == b[k]) for k in a}
+    for k, ok in same.items():
+        if not ok:
+            failures.append(f"synthesized and streamed differ in {k}")
+    # every synthesized chunk against the materialized rows
+    src = syn._stream_source
+    staged_equal = True
+    for ci, ids in enumerate(src._np_ids):
+        blk = src._assemble(src._ids_dev[ci])
+        for f in src.fields:
+            want = torch.as_tensor(np.asarray(getattr(b_res, f))[ids],
+                                   device=dev)
+            if not torch.equal(blk[f], want):
+                staged_equal = False
+                failures.append(f"synthesized chunk {ci}'s {f} rows "
+                                "differ from the materialized family")
+    if torch.device(dev).type == "cuda":
+        synth_ms = cuda_ms(lambda: src._assemble(src._ids_dev[0]), 5)
+    else:
+        t0 = time.perf_counter()
+        src._assemble(src._ids_dev[0])
+        synth_ms = (time.perf_counter() - t0) * 1e3
+    # the block against its plain version at the first synthesized
+    # chunk's prox-on operands
+    factors, data = syn._get_factors(True)
+    blk = src._assemble(src._ids_dev[0])
+    idx = syn._chunk_index(STREAM_CHUNK)[0][0]
+    d = data._replace(l=blk["l"], u=blk["u"], lb=blk["lb"], ub=blk["ub"])
+    q, bl, bu = _ph_assemble(d, blk["c"], syn.W[idx], syn.xbar[idx],
+                             syn.rho[idx], syn.nonant_idx,
+                             syn._fixed_mask[idx], syn._fixed_vals[idx],
+                             syn._w_scale, w_on=True, prox_on=True)
+    launches_cmp = admm_block.LAUNCHES
+    err, f_cmp = compare(factors, d._replace(lb=bl, ub=bu), q,
+                         syn._chunk_states[True][0], 20,
+                         "stream_path_synthesized_chunk0")
+    admm_block.LAUNCHES = launches_cmp   # comparisons are not the path's
+    failures += f_cmp
+    del syn, ph, src, factors, data, blk, d, q
+    gc.collect()
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    int8_row, f_int8 = _int8_staging_check(dev, b_res)
+    failures += f_int8
+    import shutil
+    shutil.rmtree(tmp, ignore_errors=True)
+    log(json.dumps({
+        "phase": "stream_path", "S": STREAM_SCENARIOS,
+        "chunk": STREAM_CHUNK, "chunks": n_chunks, "n": b_syn.n,
+        "m": b_syn.m, "synth_seed": STREAM_SEED,
+        "family_build_s": t_family, "runs": rows,
+        "bit_equal": same, "staged_rows_equal": staged_equal,
+        "synthesis_ms_per_chunk": synth_ms, "max_abs_err": err,
+        "int8_staging": int8_row}))
+    return launches_all, err, failures
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3415,13 +3828,20 @@ def main():
     mark("14_ef_path")
     if failures:
         raise RuntimeError("ef path failed: " + "; ".join(failures))
+    gc.collect()
+    torch.cuda.empty_cache()
+    stream_launches, stream_err, failures = stream_path(dev)
+    mark("20_stream_path")
+    if failures:
+        raise RuntimeError("stream path failed: " + "; ".join(failures))
     launches += chunk_launches + wheel_launches + aph_launches \
         + shard_launches + ls_launches + fw_launches + bundle_launches \
-        + shrink_launches + mesh_launches
+        + shrink_launches + mesh_launches + stream_launches
     # the largest difference at any shape of the path
     timing["max_abs_err"] = max(timing["max_abs_err"], chunk_err,
                                 wheel_err, aph_err, shard_err, ls_err,
-                                fw_err, bundle_err, shrink_err, mesh_err)
+                                fw_err, bundle_err, shrink_err, mesh_err,
+                                stream_err)
     entry = {"name": "admm_block", "route": "cuda",
              "source": "mpisppy_tpu_torch/ops/kernels/csrc/admm_block.cu",
              "replaces": "mpisppy_tpu/ops/kernels/pallas_kernel.py:100",

@@ -24,7 +24,9 @@ the iteration's whole host traffic is ONE packed gate row
 (``_dispatch_capable``) a partial pass solves only the dispatched
 scenarios (``solve_loop(dispatch=ids)``: ⌈scnt/chunk⌉ block calls
 instead of ⌈S/chunk⌉); otherwise every scenario solves and only the
-dispatched rows are accepted.
+dispatched rows are accepted. Under a streamed scenario source such a
+pass binds the source to the dispatched ids, so only the dispatched
+chunks are staged (fewer bytes per partial iteration).
 
 Options (reference names): APHnu, APHgamma, dispatch_frac, aph_use_lag.
 Under active-set compaction (ops/shrink) an iteration whose miditer
@@ -336,9 +338,11 @@ class APH(PHBase):
                 obs.complete_span("ph.iteration", t_it, t_end, cat="ph",
                                   args={"iter": it})
                 obs.histogram_observe("ph.iteration_seconds", t_end - t_it)
-                obs.event("ph.iteration", {"iter": it, "conv": self.conv,
-                                           "seconds": t_end - t_it,
-                                           "aph": self._aph_status})
+                rec = {"iter": it, "conv": self.conv,
+                       "seconds": t_end - t_it, "aph": self._aph_status}
+                if self._stream_source is not None:
+                    rec["stream"] = self._stream_source.status()
+                obs.event("ph.iteration", rec)
             self._ext("enditer")
 
         if finalize:

@@ -510,6 +510,9 @@ def spin_aph_shard_wheel(cfg, n_shards: int, join_timeout=600.0,
     refuse_unported(cfg)
     if mesh_ranks(cfg, warn=False) > 1:
         raise _not_ported("a scenario mesh in the process wheels", "A8b")
+    if cfg.algo.scenario_source != "resident":
+        raise _not_ported("a streamed or synthesized scenario source in "
+                          "the process wheels", "A8b")
     if cfg.hub != "aph":
         raise ValueError(f"the sharded APH wheel needs hub='aph', not "
                          f"{cfg.hub!r}")

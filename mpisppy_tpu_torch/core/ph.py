@@ -737,7 +737,14 @@ class PHBase(SPBase):
         mode, and solve THAT until the next transition. Returns True
         when a compaction happened. A no-op unless ``shrink_compact`` is
         on; A is then a dense (m, n) or (S, m, n) tensor (construction
-        refuses the split-f32 data, ROADMAP.md A9b)."""
+        refuses the split-f32 data, ROADMAP.md A9b).
+
+        A streamed source compacts: one out-of-band full restage
+        (booked on ``stream.compacted_restage_bytes``) feeds build_plan,
+        the host store re-blocks at the compacted width and the plan's
+        per-scenario blocks become 2-row surrogates over it. A
+        synthesized source makes full-width blocks on the device and has
+        no store to re-block: it keeps fixing through the pin boxes."""
         if not bool(self.options.get("shrink_compact")):
             return False
         if nfixed is None:
@@ -759,17 +766,38 @@ class PHBase(SPBase):
             # a target whose plan came back None is not staged again
             # every miditer; fixing still pays off through the pin boxes
             return False
+        stream = self._stream_source
+        if stream is not None and stream.kind != "streamed":
+            self._shrink_failed.add(target)
+            obs.counter_add("shrink.compaction_skipped")
+            return False
         from ..ops import shrink as shrink_ops
+        qd, c_full = self.qp_data, self.c
+        if stream is not None:
+            full = stream.stage_full()
+            qd = qd._replace(l=full["l"], u=full["u"], lb=full["lb"],
+                             ub=full["ub"])
+            c_full = full["c"]
         plan = shrink_ops.build_plan(
-            self.qp_data, self.c, self.c0, self.nonant_idx,
+            qd, c_full, self.c0, self.nonant_idx,
             self._fixed_mask, self._fixed_vals, target, dtype=self.dtype,
             mesh=self.shard_mesh)
+        del qd, c_full
         if self._shard_ops is not None:
             self._assert_same_plan(plan)
         if plan is None:
             self._shrink_failed.add(target)
             obs.counter_add("shrink.compaction_skipped")
             return False
+        if stream is not None:
+            # re-block the host store at the compacted width, and swap
+            # the plan's folded full blocks for surrogates over it: the
+            # chunks keep staging per chunk, now compacted
+            stream.install_compacted(plan)
+            l2, u2, lb2, ub2, c2 = stream.setup_arrays(
+                self.dtype, keep_cols=plan.keep_cols_np)
+            plan.data_c = plan.data_c._replace(l=l2, u=u2, lb=lb2, ub=ub2)
+            plan.c_c = c2
         # capture the surviving warm iterates BEFORE the invalidation
         # drops them (pulled back by the new bucket's first state build)
         self._transplant_capture(plan)
@@ -1054,21 +1082,26 @@ class PHBase(SPBase):
             self._chunk_idx_cache[(chunk, S)] = out
         return self._chunk_idx_cache[(chunk, S)]
 
-    def _ensure_chunk_states(self, key, factors, data, slices):
+    def _ensure_chunk_states(self, key, factors, data, slices,
+                             cold_data=None):
         """Per-chunk QPStates, the authoritative store of chunked mode
         (each chunk owns its rho_scale / factor trajectory). ONE cold
         state serves every chunk, factor included: chunk shapes are
         identical and nothing on the chunked path writes a state's
         tensors in place, so the sharing is safe. A new mode transplants
         its iterates from another mode's (concatenated) state, as
-        _ensure_state does."""
+        _ensure_state does. ``cold_data``: one chunk-shaped data block
+        for the cold state (a scenario source's direct fetch), instead
+        of chunk 0's rows of ``data``."""
         if key not in self._chunk_states:
             # any mode's state, this mode's own included (as the JAX
             # package reads it)
             other = self._warm_source()
-            idx0 = slices[0][0]
-            d0 = data._replace(l=data.l[idx0], u=data.u[idx0],
-                               lb=data.lb[idx0], ub=data.ub[idx0])
+            d0 = cold_data
+            if d0 is None:
+                idx0 = slices[0][0]
+                d0 = data._replace(l=data.l[idx0], u=data.u[idx0],
+                                   lb=data.lb[idx0], ub=data.ub[idx0])
             st0 = qp_cold_state(factors, d0)
             transplant = other is not None \
                 and other.x.shape[0] == self.batch.S \
@@ -1103,7 +1136,9 @@ class PHBase(SPBase):
         scatter back after pass 3. Seeded from the mode's chunk states
         (their scaled iterates, trimmed of chunk pads), or cold zeros
         when there are none. The store carries one (L, rho_scale), the
-        last chunk's (chunking needs a shared A, so L is (n, n))."""
+        last chunk's (chunking needs a shared A, so L is (n, n)). With a
+        scenario source the cold template's chunk-shaped block is one
+        direct fetch (once per store rebuild)."""
         st = self._dispatch_stores.get(key)
         S = self.batch.S
         if st is not None and st.x.shape[0] == S:
@@ -1117,9 +1152,14 @@ class PHBase(SPBase):
                               for s, r in zip(chunk_states, trims)])
                 for f in _ChunkStateView._FIELDS})
         else:
-            idx0 = slices[0][0]
-            d0 = data._replace(l=data.l[idx0], u=data.u[idx0],
-                               lb=data.lb[idx0], ub=data.ub[idx0])
+            if self._stream_source is not None:
+                b0 = self._stream_source.fetch(0)
+                d0 = data._replace(l=b0["l"], u=b0["u"], lb=b0["lb"],
+                                   ub=b0["ub"])
+            else:
+                idx0 = slices[0][0]
+                d0 = data._replace(l=data.l[idx0], u=data.u[idx0],
+                                   lb=data.lb[idx0], ub=data.ub[idx0])
             st0 = qp_cold_state(factors, d0)
             st = st0._replace(**{
                 f: torch.zeros((S,) + getattr(st0, f).shape[1:],
@@ -1198,6 +1238,12 @@ class PHBase(SPBase):
         chunk = int(self.options.get("subproblem_chunk", 0) or 0)
         # on a mesh, ``subproblem_chunk`` bounds the PER-RANK microbatch
         chunked = 0 < chunk < self.batch.S
+        if self._stream_source is not None and not chunked:
+            raise ValueError(
+                "scenario streaming serves the CHUNKED hot loop only: "
+                "subproblem_chunk must be positive and below the "
+                f"(per-rank) scenario count (got chunk={chunk}, "
+                f"S={self.batch.S})")
         if dispatch is not None:
             if self._shard_ops is not None:
                 raise ValueError(
@@ -1321,6 +1367,32 @@ class PHBase(SPBase):
         return qp_state, x, yA, yB, xn, xbar_new, xsqbar_new, W_new, \
             conv, base_obj, solved_obj, dual_obj
 
+    def _stream_bind(self, stream, slices, chunk, ids_pad, shrink):
+        """Bind the scenario source to this pass's layout: chunk ci's
+        local rows in chunk-row order (the gate's and the hospital's
+        slice maps). A full pass re-binds only when the layout changes
+        (the ids come to the host once per layout); a dispatch pass
+        binds this iteration's id set, so only the dispatched chunks
+        stage, under a sequence number that makes each partial pass a
+        fresh layout. The compacted width is part of the layout."""
+        S = self.batch.S
+        if ids_pad is not None:
+            self._dispatch_bind_seq = \
+                getattr(self, "_dispatch_bind_seq", 0) + 1
+            lkey = ("dispatch", chunk, S, self._dispatch_bind_seq)
+        else:
+            lkey = ("host", chunk, S)
+        if shrink is not None:
+            lkey = lkey + ("compact", shrink.bucket, shrink.n_c)
+        if stream.bound_key == lkey:
+            return
+        if ids_pad is not None:
+            ids = [ids_pad[i * chunk:(i + 1) * chunk]
+                   for i in range(len(slices))]
+        else:
+            ids = [idx.cpu().numpy() for idx, _ in slices]
+        stream.bind(lkey, ids, compacted=shrink is not None)
+
     def _solve_loop_chunked(self, chunk, w_on, prox_on, update,
                             fixed=False, dispatch=None):
         """Scenario microbatching: S scenarios solved in ceil(S/chunk)
@@ -1344,6 +1416,14 @@ class PHBase(SPBase):
            accepted solutions and runs one global x̄/W reduction.
         Per-phase wall-clock and gate syncs land in ``phase_timing()``.
 
+        With a scenario source (``scenario_source``, core/spbase) the
+        five vector fields of each chunk come from the source instead of
+        resident rows: the pass binds the source to its layout, pass 1
+        assembles each chunk as it arrives (chunk k+1 is staged while
+        chunk k solves), the records keep no data blocks, retries and
+        the hospital fetch directly, and pass 3 restages the chunks in a
+        second in-order pass.
+
         A dispatch-masked pass (``dispatch``, see solve_loop) runs the
         same passes over chunks of the dispatched ids only, with chunk
         states gathered from the mode's full-width row store
@@ -1361,12 +1441,27 @@ class PHBase(SPBase):
                 "(every scenario must carry the same A and P; "
                 "per-scenario matrices need per-scenario factors and "
                 "gain nothing from chunking)")
+        stream = self._stream_source
+        shrink = self._shrink if not fixed else None
+        ids_pad = None
         if dispatch is None:
             slices = self._chunk_index(chunk)
-            states = self._ensure_chunk_states(key, factors, data, slices)
+        else:
+            slices, ids_pad = self._dispatch_slices(dispatch, chunk)
+        cold_d = None
+        if stream is not None:
+            self._stream_bind(stream, slices, chunk, ids_pad, shrink)
+            if dispatch is None and key not in self._chunk_states:
+                # cold chunk states need one chunk-shaped block: a direct
+                # fetch (once per mode rebuild, never steady-state)
+                b0 = stream.fetch(0)
+                cold_d = data._replace(l=b0["l"], u=b0["u"], lb=b0["lb"],
+                                       ub=b0["ub"])
+        if dispatch is None:
+            states = self._ensure_chunk_states(key, factors, data, slices,
+                                               cold_data=cold_d)
         else:
             from ..ops.dispatch import gather_rows
-            slices, ids_pad = self._dispatch_slices(dispatch, chunk)
             dstore = self._dispatch_store(key, factors, data, slices)
             states = [dstore._replace(**{
                 f: gather_rows(getattr(dstore, f), idx)
@@ -1405,7 +1500,6 @@ class PHBase(SPBase):
         # compacted already); the (S, K) hub blocks gather to the free
         # slots for assembly, and pass 3 expands solutions back to full
         # width
-        shrink = self._shrink if not fixed else None
         asm = self._assembly_operands(shrink)
         c0fold = None if shrink is None else self._shrink_dual_fold(
             shrink, w_on, prox_on)
@@ -1424,15 +1518,53 @@ class PHBase(SPBase):
                 prox_on=bool(prox_on))
             return d_c._replace(lb=bl_c, ub=bu_c), q_c
 
-        inputs = [_assemble(ci) for ci in range(len(slices))] \
-            if pipeline else None
+        def _stream_assemble(ci, direct=False):
+            """_assemble with the five vector fields from the scenario
+            source (prefetched in order; ``direct`` bypasses the
+            pipeline for a retry). Returns (d_c, q_c, c_c): pass 3
+            needs the chunk's cost, and the records keep no data
+            blocks. Under a shrink plan the source stages compacted
+            l/u/lb/ub and the FULL c, whose kept columns assemble (a
+            gather, so q equals the resident plan.c_c spelling)."""
+            blk = stream.fetch(ci) if direct else stream.chunk(ci)
+            idx_c, _ = slices[ci]
+            d_c = data._replace(l=blk["l"], u=blk["u"], lb=blk["lb"],
+                                ub=blk["ub"])
+            c_blk = blk["c"]
+            c_asm = c_blk if shrink is None \
+                else c_blk.index_select(1, shrink.keep_cols)
+            ws = None if asm["ws"] is None else asm["ws"][idx_c]
+            q_c, bl_c, bu_c = _ph_assemble(
+                d_c, c_asm, asm["W"][idx_c], asm["xbar"][idx_c],
+                asm["rho"][idx_c], asm["idx"], asm["fm"][idx_c],
+                asm["fv"][idx_c], ws, w_on=bool(w_on),
+                prox_on=bool(prox_on))
+            return d_c._replace(lb=bl_c, ub=bu_c), q_c, c_blk
+
+        # a scenario source stages chunks in order under the solves (a
+        # gated pass: chunk k+1 is copied while chunk k solves); its
+        # assembly stays in the solve loop, since enqueueing every chunk
+        # up front would hold every chunk's blocks at once
+        if stream is not None:
+            stream.begin_pass(gated=True)
+            inputs = None
+        else:
+            inputs = [_assemble(ci) for ci in range(len(slices))] \
+                if pipeline else None
         _lap("assemble")
 
         # pass 1 — SOLVE
         solved_chunks = [None] * len(slices)
         prev_st = None
         for ci in range(len(slices)):
-            if pipeline:
+            if stream is not None:
+                t_a = _time.perf_counter()
+                d_c, q_c, _ = _stream_assemble(ci)
+                stream.release(ci)
+                dt_a = _time.perf_counter() - t_a
+                acc["assemble"] += dt_a
+                t_mark += dt_a
+            elif pipeline:
                 d_c, q_c = inputs[ci]
             else:
                 # sequential opt-out: assembly stays on the critical
@@ -1464,7 +1596,12 @@ class PHBase(SPBase):
                 # pass 3 would pin every refactorized copy at once (the
                 # unify below re-attaches the flowed one)
                 st = st._replace(L=None)
-            solved_chunks[ci] = [st, x, yA, yB, d_c, q_c, factors]
+            # streamed records drop the data blocks once the solve is
+            # enqueued (passes 2 and 3 restage them): holding every
+            # chunk's blocks would be the residency streaming bounds
+            hold = stream is None
+            solved_chunks[ci] = [st, x, yA, yB, d_c if hold else None,
+                                 q_c if hold else None, factors]
         if plan.mode == "fused":
             # phase honesty: fused solves never block mid-solve, so
             # without one wait here the device time would book under
@@ -1533,6 +1670,8 @@ class PHBase(SPBase):
             if (m <= thr) or (ci in no_retry and not is_nan):
                 continue
             fac_c, d_r, q_r = rec[6], rec[4], rec[5]
+            if stream is not None:
+                d_r, q_r, _ = _stream_assemble(ci, direct=True)
             if is_nan:
                 # the iterates themselves are poison: restart cold
                 st_r = qp_cold_state(fac_c, d_r)
@@ -1614,11 +1753,22 @@ class PHBase(SPBase):
         # pass 3 — per-chunk objectives on the accepted solutions, pad
         # rows trimmed (a dispatch pass keeps them: its scatter writes
         # the padded width, duplicate ids carrying equal rows)
+        # a scenario source restages each chunk through a second in-order
+        # pass: the reassembled (d, q) equal pass 1's (W, x̄, rho and the
+        # fixings move only after this pass), and the RAW shared P row
+        # broadcasts (the objective carries no prox rho)
+        if stream is not None:
+            stream.begin_pass()
         parts = {k: [] for k in ("x", "yA", "yB", "xn", "base", "solved",
                                  "dual")}
         for ci, (idx_c, real) in enumerate(slices):
             st, x, yA, yB, d_h, q_h, _ = solved_chunks[ci]
             states[ci] = st
+            if stream is not None:
+                d_h, q_h, c_ci = _stream_assemble(ci)
+                P0_ci = self.qp_data.P_diag.expand(c_ci.shape)
+            else:
+                c_ci, P0_ci = self.c[idx_c], self.P_diag[idx_c]
             if shrink is not None:
                 # expand to full width (the fixed columns take their
                 # folded values) and evaluate the objectives on the FULL
@@ -1630,14 +1780,13 @@ class PHBase(SPBase):
                                     shrink.keep_cols, shrink.fixed_cols,
                                     shrink.n_full)
                 xn, base, solved = _shrink_objs(
-                    x, self.c[idx_c], self.c0[idx_c], self.P_diag[idx_c],
-                    self.W[idx_c], self.nonant_idx, w_on=bool(w_on))
+                    x, c_ci, self.c0[idx_c], P0_ci, self.W[idx_c],
+                    self.nonant_idx, w_on=bool(w_on))
                 dual = _shrink_dual(d_h, q_h, c0fold[idx_c], yA, yB, x_c)
             else:
                 xn, base, solved, dual = _ph_chunk_objs(
-                    x, yA, yB, d_h, q_h, self.c[idx_c], self.c0[idx_c],
-                    self.P_diag[idx_c], self.nonant_idx, self.W[idx_c],
-                    w_on=bool(w_on))
+                    x, yA, yB, d_h, q_h, c_ci, self.c0[idx_c], P0_ci,
+                    self.nonant_idx, self.W[idx_c], w_on=bool(w_on))
             keep = x.shape[0] if dispatch is not None else real
             for k, v in (("x", x), ("yA", yA), ("yB", yB), ("xn", xn),
                          ("base", base), ("solved", solved),
@@ -1728,8 +1877,11 @@ class PHBase(SPBase):
         locally (no collective inside the solve) and keeps its own rows. Under a shrink plan (``shrink``) ``data`` is the compacted
         system and the rescue assembles from the compacted cost and the
         free-slot hub blocks, so it solves the system the chunks solve
-        and its rows scatter back at the compacted width. Returns the
-        number of host transfers made (0 or 1)."""
+        and its rows scatter back at the compacted width. With a
+        scenario source the picked rows stage from it (a direct fetch: a
+        host gather or synthesis on the device), and its full c gathers
+        the kept columns under a plan. Returns the number of host
+        transfers made (0 or 1)."""
         cap = int(self.options.get("subproblem_hospital_max", 4))
         failed = self._hospital_no_retry.setdefault(key, set())
         sh = self._shard_ops
@@ -1759,17 +1911,25 @@ class PHBase(SPBase):
         asm = self._assembly_operands(shrink)
         n = int(data.lb.shape[-1])
         mine = [j for j, (d, _) in enumerate(owners) if d == me]
-        loc_t = torch.as_tensor([owners[j][1] for j in mine],
-                                dtype=torch.long, device=self.device)
+        loc_np = np.asarray([owners[j][1] for j in mine], dtype=np.int64)
+        loc_t = torch.as_tensor(loc_np, device=self.device)
         P_m = data.P_diag.expand(len(mine), n) if data.P_diag.ndim == 1 \
             else data.P_diag[loc_t]
         A_b = data.A.expand(len(mine), *data.A.shape) if data.A.ndim == 2 \
             else data.A[loc_t]
-        d_m = QPData(P_m, A_b, data.l[loc_t], data.u[loc_t],
-                     data.lb[loc_t], data.ub[loc_t])
+        stream = self._stream_source
+        if stream is not None:
+            rb = stream.rows(loc_np)
+            d_m = QPData(P_m, A_b, rb["l"], rb["u"], rb["lb"], rb["ub"])
+            c_m = rb["c"] if shrink is None \
+                else rb["c"].index_select(1, shrink.keep_cols)
+        else:
+            d_m = QPData(P_m, A_b, data.l[loc_t], data.u[loc_t],
+                         data.lb[loc_t], data.ub[loc_t])
+            c_m = asm["c"][loc_t]
         ws = None if asm["ws"] is None else asm["ws"][loc_t]
         q_m, bl_m, bu_m = _ph_assemble(
-            d_m, asm["c"][loc_t], asm["W"][loc_t], asm["xbar"][loc_t],
+            d_m, c_m, asm["W"][loc_t], asm["xbar"][loc_t],
             asm["rho"][loc_t], asm["idx"], asm["fm"][loc_t],
             asm["fv"][loc_t], ws, w_on=w_on, prox_on=prox_on)
         rows = {"l": d_m.l, "u": d_m.u, "lb": bl_m, "ub": bu_m, "q": q_m}
@@ -2028,6 +2188,7 @@ class PHBase(SPBase):
             rec_ints = np.asarray(self.batch.integer) & ~nonant_cols
             if rec_ints.any() and self.options.get("xhat_dive_integers",
                                                    True):
+                self._refuse_streamed("the recourse-integer dive")
                 factors, d0 = self._get_factors(False, fixed=True)
                 idx = self.nonant_idx
                 d = d0._replace(
@@ -2121,6 +2282,7 @@ class PHBase(SPBase):
         calculate_incumbent's ``pin_mask``.
 
         Returns host (cands (S, K), feasible (S,) bool)."""
+        self._refuse_streamed("dive_nonant_candidates")
         if feas_tol is None:
             # the df32 residual floor under heavily pinned bounds sits
             # near 1e-3; consumers that need certainty re-evaluate the
@@ -2220,6 +2382,7 @@ class PHBase(SPBase):
         +inf. Equivalent to P ``calculate_incumbent`` calls; shapes the
         chunked solver cannot batch (per-scenario A) or that need the
         recourse-integer dive run those calls instead."""
+        self._refuse_streamed("evaluate_incumbent_pool")
         if self._shard_ops is not None:
             raise _not_ported("the batched incumbent-pool evaluation on a "
                               "sharded engine", "A8b")
@@ -2396,8 +2559,12 @@ class PH(PHBase):
                 obs.complete_span("ph.iteration", t_it, t_end, cat="ph",
                                   args={"iter": it})
                 obs.histogram_observe("ph.iteration_seconds", t_end - t_it)
-                obs.event("ph.iteration", {"iter": it, "conv": self.conv,
-                                           "seconds": t_end - t_it})
+                rec = {"iter": it, "conv": self.conv,
+                       "seconds": t_end - t_it}
+                if self._stream_source is not None:
+                    # the scenario source's cumulative staging totals
+                    rec["stream"] = self._stream_source.status()
+                obs.event("ph.iteration", rec)
             self._ext("miditer")
             if self.spcomm is not None:
                 self.spcomm.sync()

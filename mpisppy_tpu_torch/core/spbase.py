@@ -1,5 +1,5 @@
 """SPBase: the root runtime object of the port's engines (the port of
-mpisppy_tpu/core/spbase.py; no streaming).
+mpisppy_tpu/core/spbase.py).
 
 The whole scenario batch lives on the device as stacked tensors:
 probabilities and nonant indices come from the ScenarioBatch, the
@@ -28,6 +28,16 @@ over scenarios are this shard's terms summed over the ranks (one
 all-reduce each; parallel/mesh.node_means for x̄, the same body as
 without a mesh), and the batch device cache is bypassed: the shard is
 this engine's own.
+
+Scenario sources (``scenario_source``, mpisppy_tpu_torch/stream): a
+``streamed`` or ``synthesized`` source replaces the device residency of
+the five per-scenario vector fields (l/u/lb/ub/c) with per-chunk
+staging. It needs the chunked loop (``subproblem_chunk``) and a shared
+structure; ``qp_data`` then carries the source's exact 2-row setup
+surrogates, ``c`` the cost surrogate, and ``P_diag`` / ``c_stage`` stay
+on the host (the chunked loop broadcasts the shared P row). On a mesh
+each rank's source covers its shard, and a synthesized source folds the
+GLOBAL scenario ids (the shard's offset).
 """
 
 from __future__ import annotations
@@ -37,14 +47,23 @@ import threading
 import numpy as np
 import torch
 
+from .. import obs
 from ..ir.batch import ScenarioBatch
 from ..ops.qp_solver import QPData, SplitMatrix, split_f32_np
 from ..utils.runtime import DTYPE, resolve_device, to_host
 
 
 def ship_stacked(a_np, dtype, device):
-    """(S, ...) stacked host array -> device tensor of ``dtype``."""
-    return torch.as_tensor(np.asarray(a_np), dtype=dtype).to(device)
+    """(S, ...) stacked host array -> device tensor of ``dtype``, its
+    bytes booked on ``xfer.device_put_bytes``."""
+    a = np.asarray(a_np)
+    if not a.flags.writeable:
+        # a zero-stride view (a synthesized batch's template rows)
+        a = np.array(a)
+    t = torch.as_tensor(a, dtype=dtype)
+    obs.counter_add("xfer.device_put_bytes",
+                    t.numel() * t.element_size())
+    return t.to(device)
 
 
 def ship_shared_matrix(A2d, dtype, device, split=False):
@@ -61,6 +80,7 @@ def ship_shared_matrix(A2d, dtype, device, split=False):
     rows, cols = np.nonzero(A)
     struct = analyze_structure(rows, cols, A.shape[0], A.shape[1])
     hi_np, lo_np = split_f32_np(A)
+    obs.counter_add("xfer.device_put_bytes", hi_np.nbytes + lo_np.nbytes)
     return SplitMatrix(torch.as_tensor(hi_np).to(device),
                        torch.as_tensor(lo_np).to(device), struct=struct)
 
@@ -124,11 +144,19 @@ class SPBase:
         self.options = dict(options or {})
         self.dtype = dtype or DTYPE
         self.spcomm = None
-        if str(self.options.get("scenario_source", "resident")) \
-                != "resident":
-            raise NotImplementedError(
-                "scenario streaming belongs to a later slice of the port "
-                "(see ROADMAP.md)")
+        self._stream_source = None
+        from ..utils.config import STREAM_SOURCES
+        stream_kind = str(self.options.get("scenario_source", "resident"))
+        if stream_kind not in STREAM_SOURCES:
+            raise ValueError(f"unknown scenario_source {stream_kind!r}; "
+                             f"known: {STREAM_SOURCES}")
+        streaming = stream_kind != "resident"
+        if streaming and not int(self.options.get("subproblem_chunk",
+                                                  0) or 0):
+            raise ValueError(
+                "scenario_source='streamed'/'synthesized' requires "
+                "subproblem_chunk: the chunked hot loop is the "
+                "streaming consumer")
         b = batch
         # partial_probabilities: this engine holds one SHARD of the
         # scenario set (core/aph_shard.py), whose scenarios carry their
@@ -140,9 +168,14 @@ class SPBase:
         t, dev = self.dtype, self.device
         self.prob = ship_stacked(b.prob, t, dev)
         self.vprob = None
-        self.c = ship_stacked(b.c, t, dev)
-        self.c_stage = ship_stacked(b.c_stage, t, dev)
-        self.P_diag = ship_stacked(b.P_diag, t, dev)
+        if not streaming:
+            self.c = ship_stacked(b.c, t, dev)
+            self.c_stage = ship_stacked(b.c_stage, t, dev)
+            self.P_diag = ship_stacked(b.P_diag, t, dev)
+        else:
+            # c is the source's surrogate (below); the stage-split cost
+            # and the stacked P stay on the host
+            self.c = self.c_stage = self.P_diag = None
         self.c0 = ship_stacked(b.c0, t, dev)
         self.c0_stage = ship_stacked(b.c0_stage, t, dev)
         self.nonant_idx = torch.as_tensor(np.asarray(b.nonant_idx),
@@ -189,13 +222,47 @@ class SPBase:
 
             def vec(name):
                 return ship_stacked(getattr(b, name), t, dev)
-        self.qp_data = QPData(P_dev, A_dev, vec("l"), vec("u"), vec("lb"),
-                              vec("ub"))
+        if streaming:
+            if not self.shared_structure:
+                raise ValueError(
+                    "scenario_source='streamed'/'synthesized' requires "
+                    "a shared-structure batch (one A/P across "
+                    "scenarios, the representation the chunked "
+                    "single-factor loop streams over; farmer's synth "
+                    "family shares A: stream.synth.synth_batch)")
+            from ..stream.source import make_source
+            self._stream_source = make_source(b, self.options, t, dev,
+                                              id_offset=self._row0)
+            # the exact 2-row setup surrogates (stream/source.py):
+            # factors bit-equal to the resident path's, without the
+            # (S, m) / (S, n) residency
+            l2, u2, lb2, ub2, c2 = self._stream_source.setup_arrays(t)
+            self.c = c2
+            self.qp_data = QPData(P_dev, A_dev, l2, u2, lb2, ub2)
+        else:
+            self.qp_data = QPData(P_dev, A_dev, vec("l"), vec("u"),
+                                  vec("lb"), vec("ub"))
         self.memberships = [ship_stacked(b.tree.membership(s + 1), t, dev)
                             for s in range(b.tree.num_stages - 1)]
         self.slot_slices = b.stage_slot_slices
         self.slot_bounds = tuple((sl.start, sl.stop)
                                  for sl in b.stage_slot_slices)
+
+    def close_stream(self):
+        """Shut the scenario source's prefetch thread down (idempotent;
+        the next chunked pass binds again). The hub calls it at
+        finalize."""
+        if self._stream_source is not None:
+            self._stream_source.close()
+
+    def _refuse_streamed(self, what):
+        """Raise for an entry point that reads full-width scenario
+        blocks, which a streamed or synthesized source never ships."""
+        if self._stream_source is not None:
+            raise RuntimeError(
+                f"{what} reads the full-width scenario blocks, which a "
+                "streamed/synthesized scenario source never ships; the "
+                "chunked loop's per-chunk passes cover the PH surface")
 
     # ---- reductions (the reference's Allreduce family) ----
     def Eobjective(self, obj_per_scen):
@@ -226,6 +293,7 @@ class SPBase:
 
     def scenario_objectives(self, x):
         """Per-scenario objective values of an (S, n) solution block."""
+        self._refuse_streamed("scenario_objectives")
         quad = 0.5 * torch.sum(self.P_diag * x * x, dim=-1)
         return quad + torch.sum(self.c * x, dim=-1) + self.c0
 

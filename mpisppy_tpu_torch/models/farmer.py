@@ -79,6 +79,38 @@ def scenario_creator(scenario_name, use_integer=False, crops_multiplier=1,
     return m
 
 
+def scenario_synth_spec(template, seed=0, use_integer=False,
+                        crops_multiplier=1, sense="min",
+                        feed_spread=0.1):
+    """The farmer-family randomness-in-rhs synth spec (stream/synth.py;
+    the JAX package's models/farmer.py spec on stream/prng.py's
+    generator): yields are pinned at the template scenario's (one
+    shared constraint matrix, the representation the chunked and
+    streamed loops need), and the randomness moves to the cattle-feed
+    REQUIREMENT rhs: scenario s demands ``CATTLE_FEED * (1 + feed_spread
+    * (2u - 1))`` with ``u ~ U[0,1)^crops`` drawn from
+    ``fold_in(prng_key(seed), s)``. Zero-requirement crops keep a zero
+    rhs exactly. Uniform draws are exact, so the values equal the JAX
+    package's bit for bit."""
+    import torch
+
+    from ..stream import prng
+    from ..stream.synth import SynthField, SynthSpec
+
+    sl = template.con_slices["EnforceCattleFeedRequirement"]
+    base_np = np.tile(CATTLE_FEED, crops_multiplier).astype(np.float64)
+    spread = float(feed_spread)
+
+    def fn(keys):
+        base = torch.as_tensor(base_np, device=keys.device)
+        u = prng.uniform(keys, base_np.shape)
+        return (base * (1.0 + spread * (2.0 * u - 1.0)),)
+
+    return SynthSpec(seed=int(seed),
+                     fields=(SynthField("l", sl.start, sl.stop),),
+                     fn=fn)
+
+
 def make_tree(num_scens, crops_multiplier=1):
     names = [f"scen{i}" for i in range(num_scens)]
     return two_stage_tree(names, nonant_names=["DevotedAcreage"])

@@ -375,6 +375,57 @@ def scenario_vector_patch(scenario_name, num_gens=10, num_hours=24,
             ("ub", "spill"): np.maximum(wind, 0.0)}
 
 
+def scenario_synth_spec(template, seed=0, num_gens=10, num_hours=24,
+                        relax_integrality=True, min_up_down=False,
+                        ramping=False, t0_state=False,
+                        startup_shutdown_ramps=False, quick_start=False):
+    """The UC-family synth spec (stream/synth.py; the JAX package's
+    models/uc.py spec on stream/prng.py's generator): the same three
+    wind touch points as ``scenario_vector_patch`` (balance rhs, reserve
+    rhs, spill upper bound), with the wind trace a seeded random walk
+    (smooth ~15%-of-capacity walk, clipped to [0, 40%]) drawn from
+    ``fold_in(prng_key(seed), s)``. A synth-UC scenario is therefore a
+    different instance from the RandomState one at the same id. The
+    walk's steps are normal draws, which go through ``erfinv``: they
+    agree with the JAX package's to the bar of
+    tests/test_torch_stream_prng.py, not bit for bit."""
+    import torch
+
+    from ..stream import prng
+    from ..stream.synth import SynthField, SynthSpec
+
+    T = num_hours
+    load_np = np.asarray(load_profile(num_hours, num_gens), np.float64)
+    res_np = (1.0 + RESERVE_FRAC) * load_np
+    cap = float(fleet(num_gens)["pmax"].sum())
+    qs_cap = float(fleet(num_gens)["pmax"][
+        quick_start_set(num_gens)].sum()) if quick_start else 0.0
+    inv_sqrt_np = 1.0 / np.sqrt(np.arange(1, T + 1, dtype=np.float64))
+
+    def fn(keys):
+        dev = keys.device
+        load = torch.as_tensor(load_np, device=dev)
+        inv_sqrt = torch.as_tensor(inv_sqrt_np, device=dev)
+        steps = prng.normal(keys, (T,)) * 0.25
+        wind = torch.clamp(
+            0.15 + 0.1 * torch.cumsum(steps, dim=1) * inv_sqrt,
+            0.0, 0.4) * cap
+        bal = load - wind
+        res = torch.as_tensor(res_np, device=dev) - wind - qs_cap
+        return bal, bal, res, wind
+
+    bal = template.con_slices["balance"]
+    resv = template.con_slices["reserve"]
+    spill = template.var_slices["spill"]
+    return SynthSpec(
+        seed=int(seed),
+        fields=(SynthField("l", bal.start, bal.stop),
+                SynthField("u", bal.start, bal.stop),
+                SynthField("l", resv.start, resv.stop),
+                SynthField("ub", spill.start, spill.stop)),
+        fn=fn)
+
+
 def make_tree(num_scens):
     names = [f"scen{i}" for i in range(num_scens)]
     return two_stage_tree(names, nonant_names=["u", "st"])

@@ -210,6 +210,9 @@ def spin_the_wheel_processes(cfg: RunConfig, join_timeout=None,
     if mesh_ranks(cfg, warn=False) > 1:
         raise _not_ported("a sharded hub engine in the process wheels",
                           "A8b")
+    if cfg.algo.scenario_source != "resident":
+        raise _not_ported("a streamed or synthesized scenario source in "
+                          "the process wheels", "A8b")
     join_timeout = cfg.join_timeout if join_timeout is None \
         else join_timeout
     spoke_ready_timeout = cfg.spoke_ready_timeout \

@@ -6,8 +6,15 @@ validated RunConfig into the hub/spoke dict schema spin_the_wheel
 consumes, one factory per cylinder kind. Every cylinder gets its OWN
 engine over one shared host batch, on the run's ``device`` (None = the
 CUDA device). What the port does not run yet raises, naming its
-ROADMAP.md item: the cross-scenario spoke, scenario streaming, the
-FWPH spoke beside a sharded hub, checkpoints and the live plane.
+ROADMAP.md item: the cross-scenario spoke, the FWPH spoke beside a
+sharded hub, checkpoints (a streamed wheel's included) and the live
+plane (the streaming section of analyze included).
+
+Scenario sources (``scenario_source``, mpisppy_tpu_torch/stream): a
+streamed or synthesized wheel is hub-only, as in the JAX package; a
+synthesized run builds its batch from the model's
+``scenario_synth_spec`` (``synth_seed`` in the model kwargs) and the
+spec rides to the hub engine as the ``synth_spec`` option.
 
 Scenario-axis mesh (``mesh_devices``): the PH and APH hub engines shard
 over the ranks of a ``parallel/mesh.Mesh`` (``hub_dict(cfg, mesh=...)``
@@ -41,9 +48,6 @@ def refuse_unported(cfg: RunConfig):
         if sp.kind in _UNPORTED_SPOKES:
             raise _not_ported(f"the {sp.kind!r} spoke",
                               _UNPORTED_SPOKES[sp.kind])
-    if cfg.algo.scenario_source != "resident":
-        raise _not_ported(f"scenario_source={cfg.algo.scenario_source!r}",
-                          "A12")
     if mesh_ranks(cfg, warn=False) > 1 \
             and any(sp.kind == "fwph" for sp in cfg.spokes):
         raise _not_ported("the FWPH spoke beside a sharded hub", "A8b")
@@ -125,6 +129,32 @@ def build_batch_for(cfg: RunConfig):
         kwargs.update(tk)
     else:
         tree = mod.make_tree(cfg.num_scens)
+    if cfg.algo.scenario_source == "synthesized":
+        # the model's synth spec is the single source of the family's
+        # data: the creator runs once for the shared template, the batch
+        # vectors are zero-stride views of it, and the engine makes the
+        # per-scenario perturbations on its device. The spec rides the
+        # batch to hub_dict, which passes it as the synth_spec option
+        if not hasattr(mod, "scenario_synth_spec"):
+            raise ValueError(
+                f"scenario_source='synthesized' needs model "
+                f"{cfg.model!r} to export scenario_synth_spec (farmer "
+                "and uc do)")
+        if cfg.num_bundles:
+            raise ValueError("bundling merges scenario blocks and is "
+                             "not supported with a synthesized "
+                             "scenario source")
+        from ..stream.synth import synth_batch
+        seed = int(kwargs.pop("synth_seed", 0))
+        batch, spec = synth_batch(
+            mod.scenario_creator, tree, mod.scenario_synth_spec,
+            creator_kwargs=kwargs, seed=seed, materialize_values=False)
+        batch._synth_spec = spec
+        obs.event("batch.build", {"model": cfg.model, "S": batch.S,
+                                  "K": batch.K, "n": batch.n,
+                                  "shared_A": True,
+                                  "scenario_source": "synthesized"})
+        return batch
     batch = build_batch(mod.scenario_creator, tree, creator_kwargs=kwargs,
                         vector_patch=getattr(mod, "scenario_vector_patch",
                                              None))
@@ -165,6 +195,11 @@ def hub_dict(cfg: RunConfig, batch=None, mesh=None):
     opt_kwargs = {"batch": batch if batch is not None
                   else build_batch_for(cfg),
                   "options": options, "device": cfg.device, **dtype_kw}
+    spec = getattr(opt_kwargs["batch"], "_synth_spec", None)
+    if spec is not None:
+        # the synthesized source's generator (build_batch_for attached
+        # it): an engine option, since a callable cannot ride the config
+        options["synth_spec"] = spec
     opt_cls, hub_cls = {"ph": (PH, PHHub), "aph": (APH, APHHub),
                         "lshaped": (LShapedMethod, LShapedHub)}[cfg.hub]
     if mesh is not None and mesh.size > 1 and cfg.hub in ("ph", "aph"):
@@ -239,6 +274,12 @@ def wheel_dicts(cfg: RunConfig, mesh=None):
     other than 0 no spoke dict is built (those ranks run no spoke)."""
     cfg.validate()
     refuse_unported(cfg)
+    if cfg.algo.scenario_source != "resident" and cfg.spokes:
+        # spoke engines read full-width batch arrays (incumbent pools,
+        # Lagrangian warm states) that a streamed hub never ships
+        raise ValueError(
+            "scenario_source='streamed'/'synthesized' wheels are "
+            "hub-only; drop the spokes or use scenario_source='resident'")
     obs.event("wheel.build", {"model": cfg.model,
                               "num_scens": cfg.num_scens,
                               "hub": cfg.hub,

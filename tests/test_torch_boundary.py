@@ -73,14 +73,29 @@ def test_every_module_imports_with_jax_poisoned():
               # scenario-axis sharding
               "mpisppy_tpu_torch.parallel",
               "mpisppy_tpu_torch.parallel.mesh",
-              "mpisppy_tpu_torch.parallel.launch"):
+              "mpisppy_tpu_torch.parallel.launch",
+              # scenario streaming
+              "mpisppy_tpu_torch.stream",
+              "mpisppy_tpu_torch.stream.prng",
+              "mpisppy_tpu_torch.stream.quant",
+              "mpisppy_tpu_torch.stream.synth",
+              "mpisppy_tpu_torch.stream.pipeline",
+              "mpisppy_tpu_torch.stream.source"):
         assert m in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['mpisppy_tpu'] = None\n"
             "import importlib\n"
             + "".join(f"importlib.import_module({m!r})\n" for m in mods)
-            + "import chip_smoke\n"
+            # the synth specs' generators run with JAX poisoned too
+            + "from mpisppy_tpu_torch.models import farmer, uc\n"
+            "from mpisppy_tpu_torch.stream import synth_batch\n"
+            "synth_batch(farmer.scenario_creator, farmer.make_tree(3),\n"
+            "            farmer.scenario_synth_spec)\n"
+            "synth_batch(uc.scenario_creator, uc.make_tree(3),\n"
+            "            uc.scenario_synth_spec,\n"
+            "            creator_kwargs={'num_gens': 3, 'num_hours': 4})\n"
+            "import chip_smoke\n"
             "import trace_mesh_gap\n"
             "print('PORTFREE')\n")
     out = subprocess.run([sys.executable, "-c", code],

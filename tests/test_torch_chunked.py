@@ -518,7 +518,9 @@ def test_unported_branches_raise(case, message):
     ValueError otherwise). The device mesh runs since A8 landed: a
     one-rank mesh solves as the unsharded engine does. The dispatch-masked solve runs since APH
     landed: it solves only the ids given, and refuses the W/x̄ update
-    (the JAX package's ValueError)."""
+    (the JAX package's ValueError). Scenario streaming runs since its
+    slice landed (A12): a streamed engine solves as the resident one
+    does, and an unknown source is the JAX package's ValueError."""
     opts = {"subproblem_chunk": 3}
     kw, solve_kw = {}, {}
     if case in ("mixed", "df32"):
@@ -548,7 +550,18 @@ def test_unported_branches_raise(case, message):
         assert ph.phase_timing(False)["mode"] == "host"
         return
     elif case == "stream":
-        opts["scenario_source"] = "streamed"
+        # runs since its slice landed (A12): streamed equals resident
+        ph = PHBase(_port_uc(), dict(opts, scenario_source="streamed"),
+                    device="cpu")
+        ph.solve_loop(w_on=False, prox_on=False)
+        ph.close_stream()
+        ref = PHBase(_port_uc(), opts, device="cpu")
+        ref.solve_loop(w_on=False, prox_on=False)
+        assert torch.equal(ph.xbar, ref.xbar)
+        with pytest.raises(ValueError, match="unknown scenario_source"):
+            PHBase(_port_uc(), dict(opts, scenario_source="banana"),
+                   device="cpu")
+        return
     else:
         ph = PHBase(_port_uc(), opts, device="cpu")
         ph.solve_loop(w_on=False, prox_on=False)

@@ -677,3 +677,59 @@ def test_two_processes_open_one_shared_window(cuda):
         assert wid == 1 and vals.tolist() == [0.0, 2.0, 4.0, 6.0, 8.0]
     finally:
         w.close()
+
+
+@pytest.mark.cuda
+def test_stream_pipeline_side_stream_pinned_and_bit_equal(cuda):
+    """The streamed source's card path (stream/pipeline.py): chunks
+    cross from a reused ring of pinned buffers on a side stream, a copy
+    completes while the default stream is still busy, and after 50
+    passes (gated and not) under allocator churn every staged block
+    equals the host rows bit for bit."""
+    from mpisppy_tpu_torch.ir.batch import build_batch
+    from mpisppy_tpu_torch.models import uc
+    from mpisppy_tpu_torch.stream.source import StreamedSource
+    b = build_batch(uc.scenario_creator, uc.make_tree(12),
+                    creator_kwargs={"num_gens": 10, "num_hours": 24},
+                    vector_patch=uc.scenario_vector_patch)
+    src = StreamedSource(b, torch.float64, cuda, depth=2)
+    ids = [np.arange(i, i + 4) for i in range(0, 12, 4)]
+    src.bind(("t",), ids)
+    ref = {f: torch.as_tensor(np.asarray(getattr(b, f)), device=cuda)
+           for f in src.fields}
+    bad = torch.zeros((), dtype=torch.bool, device=cuda)
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    x = torch.randn(2048, 2048, dtype=torch.float64, device=cuda)
+    for p in range(50):
+        gated = p % 2 == 0
+        src.begin_pass(gated=gated)
+        for ci, rows in enumerate(ids):
+            blk = src.chunk(ci)
+            if gated:
+                src.release(ci)
+            # keep the default stream busy and churn the allocator
+            y = x @ x
+            junk = [torch.empty(int(torch.randint(1, 1 << 20, (1,),
+                                                  generator=gen)),
+                                device=cuda) for _ in range(4)]
+            r = torch.as_tensor(rows, device=cuda)
+            for f in src.fields:
+                bad |= (blk[f] != ref[f][r]).any()
+            del blk, y, junk
+    torch.cuda.synchronize()
+    assert not bool(bad)
+    ring = src._stager._ring
+    assert all(t.is_pinned() for slot in ring for t in slot.values())
+    assert src._stager.stream != torch.cuda.current_stream(cuda)
+    # overlap: a chunk's copy completes while the default stream is busy
+    busy_end = torch.cuda.Event()
+    for _ in range(100):        # ~40 ms of f64 products
+        x = x @ x / 2048.0
+    busy_end.record()
+    src.begin_pass()
+    blk, ev = src._pipeline.get(0)
+    ev.synchronize()
+    assert not busy_end.query()
+    torch.cuda.synchronize()
+    src.close()
+    assert not src.prefetch_alive

@@ -4,10 +4,12 @@ the single-device cases of tests/test_dispatch.py run on the port, and
 the selection held bit for bit against the JAX function.
 
 The JAX package's dispatch cases run on a shared-structure farmer built
-by its streaming synthesizer, which the port does not have (ROADMAP.md
-A12); the port's cases run on the shared-structure UC, 3 generators x
-6 hours, through the hand-written block's path (its plain version on
-the CPU), with the bands of the JAX cases."""
+by its streaming synthesizer; the port's run on the shared-structure
+UC, 3 generators x 6 hours, through the hand-written block's path (its
+plain version on the CPU), with the bands of the JAX cases, and, since
+the port has the synthesizer (mpisppy_tpu_torch/stream), the JAX cases
+also run as they are on the port's farmer synth family (the same
+batch bit for bit, tests/test_torch_stream_prng.py)."""
 
 from types import SimpleNamespace
 
@@ -28,6 +30,8 @@ from mpisppy_tpu_torch.models import farmer, uc
 from mpisppy_tpu_torch.ops.dispatch import (GATE_HEAD, dispatch_gate,
                                             dispatch_select, gather_rows,
                                             scalar_gate, scatter_rows)
+
+from torch_threads import one_torch_thread  # noqa: F401
 
 _UC_KW = {"num_gens": 3, "num_hours": 6}
 # the slice's block options at this size (tests/test_torch_ph.py)
@@ -346,3 +350,83 @@ def test_dispatch_config_validation_and_cli():
     o = cfg.algo.to_options()
     assert o["dispatch_frac"] == 0.3
     assert o["APHnu"] == 2.0 and o["APHgamma"] == 0.5
+
+
+# ---------------- the JAX cases on the farmer synth family ----------------
+
+def _farmer_shared(S=6, seed=7):
+    from mpisppy_tpu_torch.stream import synth_batch
+    b, _ = synth_batch(farmer.scenario_creator, farmer.make_tree(S),
+                       farmer.scenario_synth_spec, seed=seed)
+    return b
+
+
+def _settled_farmer(S=6, chunk=2, iters=2):
+    ph = PH(_farmer_shared(S), {"defaultPHrho": 1.0, "PHIterLimit": iters,
+                                "convthresh": -1.0,
+                                "subproblem_chunk": chunk,
+                                "subproblem_max_iter": 3000,
+                                "subproblem_eps": 1e-8}, device="cpu")
+    ph.ph_main(finalize=False)
+    return ph
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_farmer_family_dispatch_full_ids_equivalent():
+    """The JAX case as it is: solve_loop(dispatch=arange(S)) reproduces
+    the plain chunked pass to solver tolerance (the row store's one
+    rho_scale; the objective is the dual-invariant check)."""
+    ph_a, ph_b = _settled_farmer(), _settled_farmer()
+    assert torch.equal(ph_a.x, ph_b.x)
+    ph_a.solve_loop(w_on=True, prox_on=True, update=False)
+    ph_b.solve_loop(w_on=True, prox_on=True, update=False,
+                    dispatch=np.arange(ph_b.batch.S))
+    np.testing.assert_allclose(ph_b.x.numpy(), ph_a.x.numpy(),
+                               rtol=1e-4, atol=1e-3)
+    assert ph_b.Eobjective_value() == \
+        pytest.approx(ph_a.Eobjective_value(), rel=1e-5)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_farmer_family_dispatch_partial_touches_only_dispatched():
+    ph = _settled_farmer()
+    x0 = ph.x.clone()
+    ph.solve_loop(w_on=True, prox_on=True, update=False,
+                  dispatch=np.array([1, 4]))
+    for s in (0, 2, 3, 5):
+        assert torch.equal(ph.x[s], x0[s])
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_farmer_family_frac02_solve_count_quarter_of_full(mem_obs):
+    """The JAX acceptance case on the farmer synth family (rho 10,
+    chunks of 2, 21 iterations): at dispatch_frac 0.2 the counted
+    scenario solves are <= 0.25x full dispatch, genuinely skipped, and
+    both runs land in one objective neighbourhood (5 %)."""
+    iters, S = 21, 10
+    opts = {"defaultPHrho": 10.0, "PHIterLimit": iters,
+            "convthresh": -1.0, "subproblem_max_iter": 3000,
+            "subproblem_eps": 1e-8, "subproblem_chunk": 2}
+    c0 = obs.counters_snapshot()
+    full = APH(_farmer_shared(S), dict(opts), device="cpu")
+    full.APH_main(finalize=False)
+    c1 = obs.counters_snapshot()
+    part = APH(_farmer_shared(S), dict(opts, dispatch_frac=0.2),
+               device="cpu")
+    part.APH_main(finalize=False)
+    c2 = obs.counters_snapshot()
+
+    def delta(a, b, k):
+        return b.get(k, 0) - a.get(k, 0)
+
+    solved_full = delta(c0, c1, "dispatch.solved_scenarios")
+    solved_part = delta(c1, c2, "dispatch.solved_scenarios")
+    assert solved_full == S * iters
+    assert solved_part == S + 2 * (iters - 1)
+    assert solved_part <= 0.25 * solved_full
+    assert delta(c1, c2, "dispatch.skipped_scenarios") == \
+        (S - 2) * (iters - 1)
+    assert part._aph_status["solve_path"] == "chunked-skip"
+    of, op = full.Eobjective_value(), part.Eobjective_value()
+    assert abs(op - of) / abs(of) < 0.05
+

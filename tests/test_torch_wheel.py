@@ -202,7 +202,7 @@ def test_cli_aph_hub(capsys, monkeypatch):
 @pytest.mark.parametrize("argv,item", [
     (["farmer", "--with-cross-scenario"], "A11c"),
     (["farmer", "--scenario-source", "streamed",
-      "--subproblem-chunk", "2"], "A12"),
+      "--subproblem-chunk", "2", "--telemetry-dir", "t"], "A13"),
     (["farmer", "--mesh-devices", "2", "--with-fwph"], "A8"),
     (["farmer", "--telemetry-dir", "t"], "A13"),
     (["farmer", "--status-port", "0"], "A13"),

@@ -301,3 +301,29 @@ def hospital_run(mesh, spec):
                               (recs[ci_p][1], recs[ci_p][2],
                                recs[ci_p][3])] if own else None}
     return out
+
+
+def stream_run(mesh, spec):
+    """PH on the farmer synth family (S = spec["S"], seed 7) from
+    ``spec["source"]`` ("resident", "streamed" or "synthesized"): the
+    run's (conv, Eobjective, trivial bound), x̄ and W."""
+    from mpisppy_tpu_torch.core.ph import PH
+    from mpisppy_tpu_torch.models import farmer
+    from mpisppy_tpu_torch.stream import synth_batch
+    torch.set_num_threads(1)
+    source = spec["source"]
+    batch, synth = synth_batch(
+        farmer.scenario_creator, farmer.make_tree(spec["S"]),
+        farmer.scenario_synth_spec, seed=7,
+        materialize_values=source != "synthesized")
+    opts = dict(spec["opts"])
+    if source != "resident":
+        opts["scenario_source"] = source
+    if source == "synthesized":
+        opts["synth_spec"] = synth
+    ph = PH(batch, opts, mesh=mesh) if mesh is not None \
+        else PH(batch, opts, device="cpu")
+    out = ph.ph_main()
+    ph.close_stream()
+    return {"result": out, "xbar": _whole(ph, ph.xbar),
+            "W": _whole(ph, ph.W)}
