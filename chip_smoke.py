@@ -167,6 +167,23 @@
    the prox-on iteration (nothing of a scenario row's size when
    synthesized; the booked bytes, pinned, each chunk's copy inside the
    previous chunk's solve interval when streamed) and int8 staging;
+21. rides phases 3, 10 and 12 with telemetry (mpisppy_tpu_torch/obs):
+   the main path runs with a session writing to a temporary directory
+   and a forensic sample every iteration; ``analyze`` must render every
+   section with every invariant PASS, ``profile.device`` must name the
+   card and its peaks, the block's profile entry must book the byte
+   floor (1500 x (A + F) + one pass of A per call) for the path's
+   calls, the prox-on iteration's ``hbm_util`` must lie in (0, 1.05],
+   the memory gauges must equal the allocator's readings at the
+   sample, the forensic sample must decompose conv (the slot masses /
+   K = conv to 1e-12), and a torch.profiler pass around one block call
+   must see the ``kernel.cuda`` range by name (``telemetry_main``);
+   the wheel runs with ``status_port`` 0 and a telemetry directory, a
+   mid-run fetch of /status and /metrics must succeed, live.json must
+   parse and ``analyze`` must give a bound-flow verdict per spoke
+   (``telemetry_wheel``); the sharded APH wheel records every process
+   under its role and its merged trace must have one track per process
+   (``telemetry_shards``);
 then prints one {"kernels": [...]} line whose launches count phases 3,
 5, 10, 11, 12, 13, 15, 16, 17, 19 (every rank's) and 20 and whose
 max_abs_err is the largest of phases 4, 5, 10, 11, 12, 13, 15, 16, 17,
@@ -245,20 +262,21 @@ XHAT_ORACLE = {"xhat_oracle_candidates": True,
 # partial iteration) for APH_ITERS iterations (5, then 3, until cuts in
 # depth for the script's time), and the sharded wheel at S = 4 (cut from the
 # chunked path's 40 for the run's time; the widths stay the reference
-# instance's)
+# instance's) for APH_SHARD_ITERS iterations (4 until a cut in depth for
+# the script's time)
 APH_ITERS = 2
 APH_FRAC = 0.25
 APH_SHARD_SCENARIOS = 4
 APH_SHARDS = 2
-APH_SHARD_ITERS = 4
+APH_SHARD_ITERS = 2
 
 # L-shaped (phase 13): the slice's S = 10 batch, LSHAPED_ITERS
 # iterations (a cut in depth, for time). The EF (phase 14): the
 # reference instance at EF_SCENARIOS (its dense EF matrix is 7.3 GB in
 # f64; S = 10 would not fit the card) with EF_BUDGET ADMM iterations
 # (cuts in depth for the script's time: 12,000 steps landed 1.8e-5
-# from host HiGHS, 6,000 steps 3.3e-5, 4,000 steps 5.7e-5, the band is
-# 2e-3)
+# from host HiGHS, 6,000 steps 3.3e-5, 4,000 steps 5.7e-5, 3,000 steps
+# 1.4e-5, 2,000 steps 8.1e-5, the band is 2e-3)
 LSHAPED_ITERS = 4
 # the reference-backend cut solve of phase 13's cut-at-point check: the
 # slice's step budget (rho adapts; the dual residual on the dispatch
@@ -266,7 +284,7 @@ LSHAPED_ITERS = 4
 # can afford)
 REF_CUT_ITERS = SLICE_BUDGET
 EF_SCENARIOS = 2
-EF_BUDGET = 3000
+EF_BUDGET = 1500
 # FWPH (phase 15): the slice's S = 10 batch; the spoke runs its iter 0
 # and FWPH_ITERS outer iterations of FWPH_FW_ITERS linearized solves
 # (cuts in depth, for time; with 2, the first outer iteration took
@@ -603,7 +621,9 @@ def main_path(dev):
                         creator_kwargs=SLICE_INSTANCE,
                         vector_patch=uc.scenario_vector_patch)
     t_batch = time.perf_counter() - t0
-    opts = dict(PH_OPTS)
+    # phase 21 rides this run: a telemetry session writing to a
+    # temporary directory, a forensic sample every iteration
+    opts = dict(PH_OPTS, forensics_interval=1)
     # x̄ and W after prox-on iteration 1: what phase 19 holds its
     # sharded run against
     it_log = Snapshot(at=1)
@@ -617,7 +637,9 @@ def main_path(dev):
     log(json.dumps({"phase": "setup", "n": batch.n, "m": batch.m,
                     "S": batch.S, "K": batch.K,
                     "batch_build_s": t_batch, "ship_s": t_ship}))
-    obs.configure()
+    import tempfile
+    tdir = tempfile.mkdtemp(prefix="telemetry_main_")
+    obs.configure(out_dir=tdir)
     admm_block.LAUNCHES = 0
     t0 = it_log.t0 = time.perf_counter()
     conv, eobj, tbound = ph.ph_main()
@@ -625,6 +647,7 @@ def main_path(dev):
     t_main = time.perf_counter() - t0
     launches = admm_block.LAUNCHES
     demotions = obs.events("kernel.cuda_demotion")
+    telemetry = telemetry_in_session(ph) if on_card else None
     obs.shutdown()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
 
@@ -665,7 +688,143 @@ def main_path(dev):
     if not all(np.isfinite(v) for v in finite) \
             or not bool(torch.isfinite(ph.xbar).all()):
         raise RuntimeError(f"non-finite bound or iterate: {finite}")
+    if telemetry is not None:
+        telemetry_main_checks(ph, tdir, telemetry, solves)
+    import shutil
+    shutil.rmtree(tdir, ignore_errors=True)
     return ph, launches
+
+
+def telemetry_in_session(ph):
+    """Phase 21, inside the main path's telemetry session: the profile's
+    per-entry totals, a memory sample beside the allocator's own
+    readings, and one 20-step block call at the main path's shapes
+    under torch.profiler, whose record_function range named after the
+    block's profile entry (obs/trace.py's bridge) must appear by name.
+    The call's launches are not the path's. Returns what
+    telemetry_main_checks holds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from mpisppy_tpu_torch.obs import profile as obs_profile
+    from mpisppy_tpu_torch.obs import resource
+    from mpisppy_tpu_torch.ops import kernels
+    from mpisppy_tpu_torch.ops.kernels import admm_block
+    totals = obs_profile.entry_totals()
+    sample = resource.sample_memory()
+    mem = {"bytes_in_use": torch.cuda.memory_allocated(0),
+           "peak_bytes_in_use": torch.cuda.max_memory_allocated(0)}
+    factors, data = ph._get_factors(True)
+    st = ph._qp_states[True]
+    q, _, _ = _assembled_q(ph, data)
+    plan = kernels.prepare(factors, mode="fused", backend="cuda")
+    saved = admm_block.LAUNCHES
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        kernels.kernel_solve(plan, factors, data, q, st,
+                             precision="native", max_iter=20, tail_iter=0,
+                             e_pri=1e-5, e_dua=1e-2, stall_rel=0.0,
+                             polish=False, polish_chunk=2, ir_sweeps=1)
+        _sync()
+    admm_block.LAUNCHES = saved
+    ranges = {e.key: e for e in prof.key_averages()}
+    span = ranges.get("kernel.cuda")
+    return {"totals": totals, "sample": sample, "mem": mem,
+            "profiler_range": None if span is None else {
+                "count": span.count,
+                "cpu_time_total_us": span.cpu_time_total}}
+
+
+def telemetry_main_checks(ph, tdir, tel, solves):
+    """Phase 21 on the main path's artifacts (the session is closed):
+    the files parse and ``analyze`` renders every section with every
+    invariant PASS, profile.device names the card and its peaks, the
+    block entry booked the byte formula for the path's calls, the
+    prox-on iteration's hbm_util lies in (0, 1.05], the memory gauges
+    equal the allocator's readings at the sample, the forensic sample
+    decomposes conv, and the profiler saw the block's range. Prints one
+    JSON line; raises on a failed check."""
+    import torch
+    from mpisppy_tpu_torch.obs import analyze
+    from mpisppy_tpu_torch.ops import forensics
+    failures = []
+    run = analyze.load_run(tdir)
+    report = analyze.render_report(run)
+    checks = analyze.invariant_checks(run)
+    bad = [(n, d) for n, ok, d, _ in checks if not ok]
+    if bad:
+        failures.append(f"analyze invariants not PASS: {bad}")
+    names = {n for n, *_ in checks}
+    if "gate_syncs_per_solve_call_O1" not in names:
+        failures.append("no gate-sync invariant in the report")
+    for sec in ("== phase breakdown ==", "== roofline ==",
+                "== forensics ==", "== invariant checks =="):
+        if sec not in report:
+            failures.append(f"analyze report lacks {sec}")
+    rf = analyze.roofline_summary(run)
+    dev = (rf or {}).get("device") or {}
+    kind = torch.cuda.get_device_name(0)
+    if dev.get("device_kind") != kind or dev.get("peak_flops") != 67e12 \
+            or dev.get("peak_hbm_gbps") != 3350.0:
+        failures.append(f"profile.device {dev} does not name the card "
+                        f"{kind!r} and its peaks")
+    m, n = ph.batch.m, ph.batch.n
+    # the block's byte floor, written out here: per step A and F once,
+    # then one pass of A, f64
+    want = solves * 8 * (SLICE_BUDGET * (m * n + n * n) + m * n)
+    blk = tel["totals"].get("kernel.cuda", {})
+    if blk.get("calls") != solves or blk.get("bytes") != want:
+        failures.append(f"kernel.cuda booked {blk}, expected {solves} "
+                        f"calls and {want} bytes")
+    recs = analyze.iteration_rows(run)
+    prof = (recs[-1].get("profile") or {}) if recs else {}
+    util, mfu = prof.get("hbm_util"), prof.get("mfu")
+    if util is None or not 0.0 < util <= 1.05:
+        failures.append(f"prox-on hbm_util {util} outside (0, 1.05]")
+    peak_gauge = run.gauges().get("mem.cuda0.peak_bytes_in_use")
+    samp = tel["sample"].get("cuda0", {})
+    if samp != tel["mem"] or peak_gauge is None:
+        failures.append(f"memory sample {samp} != allocator {tel['mem']} "
+                        f"(gauge {peak_gauge})")
+    fx = ph._forensic_last or {}
+    if fx.get("conv") is None or abs(fx["conv"] - ph.conv) \
+            > 1e-12 * abs(ph.conv):
+        failures.append(f"forensic conv {fx.get('conv')} != conv "
+                        f"{ph.conv}")
+    # every slot on the leaderboard: the masses sum to K · conv
+    xn = ph.nonants_of(ph.x)
+    K = xn.shape[1]
+    st0 = forensics.init_state(*xn.shape, dtype=xn.dtype, device=xn.device)
+    _, packed = forensics.forensic_reduce(
+        st0, xn, ph.xbar, ph.W, ph.prob, ph.rho, kk=K,
+        ks=min(forensics.TOPK, ph._S_orig))
+    full = forensics.unpack(packed, K, min(forensics.TOPK, ph._S_orig))
+    mass = sum(v for _, v in full["top_slots"])
+    if abs(mass / K - full["conv"]) > 1e-12 * abs(full["conv"]) \
+            or abs(full["conv"] - ph.conv) > 1e-12 * abs(ph.conv):
+        failures.append(f"slot masses / K {mass / K} vs conv "
+                        f"{full['conv']} vs engine {ph.conv}")
+    if tel["profiler_range"] is None:
+        failures.append("torch.profiler saw no 'kernel.cuda' range")
+    log(json.dumps({
+        "phase": "telemetry_main", "iterations": [
+            {k: r.get(k) for k in ("iter", "seconds", "conv")}
+            | {"profile": r.get("profile")} for r in recs],
+        "prox_on_hbm_util": util, "prox_on_mfu": mfu,
+        # PERF.md §6's figure for the same iteration: the block at 54 %
+        # of its byte bound (H100 80GB HBM3 at 700 W)
+        "perf_md_block_byte_bound_share": 0.54,
+        "kernel_cuda": blk, "qp_solve": tel["totals"].get("qp.solve"),
+        "memory_sample": samp, "memory_allocator": tel["mem"],
+        "forensics": {k: fx.get(k) for k in ("conv", "pri_total",
+                                             "top_slots",
+                                             "scen_pri_shares")},
+        "slot_mass_over_K": mass / K, "profiler_range":
+            tel["profiler_range"],
+        "invariants": [[n, ok] for n, ok, *_ in checks],
+        "failures": failures}))
+    if failures:
+        raise RuntimeError("telemetry (main path) failed: "
+                           + "; ".join(failures))
 
 
 def block_bound(S, m, n, steps):
@@ -1529,7 +1688,12 @@ def wheel_path(dev):
     from mpisppy_tpu_torch.utils.sputils import spin_the_wheel
     from mpisppy_tpu_torch.utils.vanilla import wheel_dicts
 
+    import tempfile
     cfg = wheel_config(dev)
+    # phase 21 rides this wheel: the live plane on an ephemeral port
+    # and a telemetry directory
+    cfg.status_port = 0
+    tdir = tempfile.mkdtemp(prefix="telemetry_wheel_")
     t0 = time.perf_counter()
     hub_d, spoke_ds = wheel_dicts(cfg)
     t_batch = time.perf_counter() - t0
@@ -1539,10 +1703,14 @@ def wheel_path(dev):
     on_card = torch.device(dev).type == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats()
-    obs.configure()
+    obs.configure(out_dir=tdir, config=cfg.to_dict())
     admm_block.LAUNCHES = 0
+    live = LivePoller()
     t0 = it_log.t0 = time.perf_counter()
-    wheel = spin_the_wheel(hub_d, spoke_ds)
+    try:
+        wheel = spin_the_wheel(hub_d, spoke_ds, register_hub=live.start)
+    finally:
+        live.stop()
     _sync()
     t_wheel = time.perf_counter() - t0
     launches = admm_block.LAUNCHES
@@ -1596,6 +1764,7 @@ def wheel_path(dev):
     err, f = compare(factors, data, q, st, 20, "wheel_lagrangian_prox_off")
     failures += f
     admm_block.LAUNCHES = launches   # the comparison's are not the path's
+    failures += telemetry_wheel_checks(tdir, live, len(wheel.spokes))
     rows = it_log.rows
     log(json.dumps({
         "phase": "wheel_path", "S": ph.batch.S, "n": ph.batch.n,
@@ -1635,6 +1804,87 @@ def wheel_path(dev):
     if on_card:
         torch.cuda.empty_cache()
     return launches, err, failures, batch, best_xhat, summary
+
+
+class LivePoller:
+    """Phase 21's live-plane client: once the hub is built
+    (spin_the_wheel's ``register_hub``), a thread polls /status until
+    the hub has finished an iteration, then fetches /status and
+    /metrics once each and keeps what came back."""
+
+    def __init__(self):
+        import threading
+        self.got = {}
+        self._stop = threading.Event()
+        self._thread = None
+
+    def start(self, hub):
+        import threading
+        self._thread = threading.Thread(target=self._poll, args=(hub,),
+                                        daemon=True)
+        self._thread.start()
+
+    def _poll(self, hub):
+        import urllib.request
+        base = f"http://127.0.0.1:{hub._status_server.port}"
+        while not self._stop.is_set():
+            try:
+                with urllib.request.urlopen(base + "/status",
+                                            timeout=30) as r:
+                    snap = json.loads(r.read())
+                if (snap.get("iter") or 0) >= 1:
+                    with urllib.request.urlopen(base + "/metrics",
+                                                timeout=30) as r:
+                        metrics = r.read().decode()
+                    self.got = {"status": snap, "metrics": metrics,
+                                "t": time.perf_counter()}
+                    return
+            except OSError as e:
+                self.got = {"error": repr(e)}
+            self._stop.wait(0.5)
+
+    def stop(self):
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=60)
+
+
+def telemetry_wheel_checks(tdir, live, n_spokes):
+    """Phase 21 on the wheel's artifacts: the mid-run /status and
+    /metrics fetch succeeded, live.json parses after the wheel, and
+    ``analyze`` gives a bound-flow verdict per spoke. Prints one JSON
+    line; returns the failed checks."""
+    import shutil
+    from mpisppy_tpu_torch.obs import analyze
+    failures = []
+    snap = live.got.get("status")
+    metrics = live.got.get("metrics", "")
+    if not snap or snap.get("type") != "live" \
+            or "mpisppy_tpu_live_iter" not in metrics \
+            or "mpisppy_tpu_ph_solve_loop_calls" not in metrics:
+        failures.append(f"no mid-run /status and /metrics: {live.got}")
+    try:
+        with open(os.path.join(tdir, "live.json")) as fh:
+            final = json.load(fh)
+    except (OSError, ValueError) as e:
+        final = None
+        failures.append(f"live.json did not parse: {e!r}")
+    flow = analyze.bound_flow_summary(analyze.load_run(tdir)) or {}
+    verdicts = {k: v.get("verdict") for k, v in flow.items()}
+    if len(verdicts) != n_spokes or not all(verdicts.values()):
+        failures.append(f"bound-flow verdicts {verdicts} for {n_spokes} "
+                        "spokes")
+    log(json.dumps({
+        "phase": "telemetry_wheel",
+        "mid_run_status": None if not snap else {
+            k: snap.get(k) for k in ("iter", "outer", "inner", "rel_gap",
+                                     "elapsed_seconds", "roofline")},
+        "live_json": None if final is None else {
+            k: final.get(k) for k in ("iter", "outer", "inner", "rel_gap",
+                                      "roofline")},
+        "bound_flow_verdicts": verdicts, "failures": failures}))
+    shutil.rmtree(tdir, ignore_errors=True)
+    return failures
 
 
 class APHLog(IterLog):
@@ -1849,6 +2099,40 @@ def _card_memory_sampler(stop, peak):
         stop.wait(1.0)
 
 
+def telemetry_shard_checks(cfg):
+    """Phase 21 on the sharded APH wheel's directory: every process's
+    role artifacts exist (shard 0, which carries the hub, unsuffixed;
+    shard i as ``shard<i>``; each spoke under its role) and
+    trace_merged.json has one track per process. Prints one JSON line;
+    returns the failed checks."""
+    import shutil
+    tdir = cfg.telemetry_dir
+    roles = [""] + [f"-shard{i}" for i in range(1, APH_SHARDS)] + [
+        f"-spoke{i}-{sp.kind}" for i, sp in enumerate(cfg.spokes)]
+    want = [f"{stem}{r}{ext}" for r in roles
+            for stem, ext in (("events", ".jsonl"), ("trace", ".json"),
+                              ("metrics", ".json"))]
+    have = sorted(os.listdir(tdir))
+    failures = [f"missing telemetry artifact {f}" for f in want
+                if f not in have]
+    tracks = None
+    try:
+        with open(os.path.join(tdir, "trace_merged.json")) as fh:
+            merged = json.load(fh)
+        tracks = len({e["pid"] for e in merged["traceEvents"]
+                      if e.get("ph") == "M"
+                      and e.get("name") == "process_name"})
+    except (OSError, ValueError, KeyError) as e:
+        failures.append(f"trace_merged.json: {e!r}")
+    if tracks != len(roles):
+        failures.append(f"trace_merged.json has {tracks} process tracks, "
+                        f"expected {len(roles)}")
+    log(json.dumps({"phase": "telemetry_shards", "files": have,
+                    "merged_tracks": tracks, "failures": failures}))
+    shutil.rmtree(tdir, ignore_errors=True)
+    return failures
+
+
 def shard_block_check(cfg):
     """The block against its plain version at the shapes a shard's solve
     gives it: shard 0's rows (S / shards of them) against the
@@ -1895,6 +2179,10 @@ def aph_shard_wheel(dev):
                        if k not in ("subproblem_chunk",
                                     "subproblem_hospital")}
     cfg.hub_options["PHIterLimit"] = APH_SHARD_ITERS
+    # phase 21 rides this wheel: every process records into one
+    # telemetry directory under its role
+    import tempfile
+    cfg.telemetry_dir = tempfile.mkdtemp(prefix="telemetry_shards_")
     cfg.validate()
     stats, peak = [], [0]
     stop = threading.Event()
@@ -1921,6 +2209,7 @@ def aph_shard_wheel(dev):
                 and s["backends"] == ["cuda"]):
             failures.append(f"shard {s['shard']} did not run the block on "
                             f"the card with no demotion: {s}")
+    failures += telemetry_shard_checks(cfg)
     rows, err, f = shard_block_check(cfg)
     failures += f
     log(json.dumps({
@@ -2596,7 +2885,9 @@ def bundle_path(dev, batch, phase10):
     ph = PH(bundled, opts, device=dev, extensions=it_log)
     _sync()
     t_ship = time.perf_counter() - t0
-    obs.configure()
+    import tempfile
+    tdir = tempfile.mkdtemp(prefix="telemetry_main_")
+    obs.configure(out_dir=tdir)
     admm_block.LAUNCHES = 0
     t0 = it_log.t0 = time.perf_counter()
     conv, eobj, tbound = ph.ph_main()
@@ -2604,6 +2895,7 @@ def bundle_path(dev, batch, phase10):
     t_main = time.perf_counter() - t0
     launches = admm_block.LAUNCHES
     demotions = obs.events("kernel.cuda_demotion")
+    telemetry = telemetry_in_session(ph) if on_card else None
     obs.shutdown()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
     pri0 = float(ph._qp_states[False].pri_rel.max())

@@ -10,8 +10,13 @@ extensive form (core/ef.py; ``--EF-integer`` as a MIP) and prints
 ``--device`` picks the engines' device (default: the CUDA device; the
 run raises without one unless ``--device cpu`` is given). What the port
 does not run yet refuses, naming its ROADMAP.md item: the cross-scenario
-spoke, the ``serve`` and ``analyze`` subcommands and non-resident
-scenario sources.
+spoke, the ``serve`` subcommand and checkpoints.
+
+``--telemetry-dir D`` (or ``MPISPPY_TPU_TELEMETRY_DIR``) writes the run's
+events.jsonl, trace.json, metrics.json and live.json into D, and the
+``analyze`` subcommand reads them: ``python -m mpisppy_tpu_torch analyze
+D`` (``--json``, ``--compare A B``, ``--watch``); it reads the JAX
+package's runs too.
 
 Examples:
   python -m mpisppy_tpu_torch farmer --num-scens 3 --default-rho 1 \\
@@ -25,6 +30,8 @@ Examples:
       --device cpu
   python -m mpisppy_tpu_torch farmer --num-scens 4 --num-bundles 2 \\
       --with-lagrangian --with-xhatshuffle --device cpu
+  python -m mpisppy_tpu_torch farmer --telemetry-dir runs/f1 --device cpu
+  python -m mpisppy_tpu_torch analyze runs/f1
 """
 
 from __future__ import annotations
@@ -168,14 +175,17 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--EF", action="store_true", dest="solve_ef")
     p.add_argument("--EF-integer", action="store_true", dest="ef_integer")
     p.add_argument("--trace-prefix", type=str, default=None)
-    # the JAX package's telemetry files, live plane and checkpoints:
-    # accepted by the parser, refused by the run (ROADMAP.md A13, A14)
+    # telemetry files and the live plane (obs/); checkpoints are
+    # accepted by the parser, refused by the run (ROADMAP.md A14)
     p.add_argument("--telemetry-dir", type=str, default=None,
-                   help="telemetry files (not ported: refuses, "
-                        "ROADMAP.md A13)")
+                   help="enable telemetry (mpisppy_tpu_torch.obs): "
+                        "events.jsonl, trace.json, metrics.json and "
+                        "live.json in this directory; read them with "
+                        "'python -m mpisppy_tpu_torch analyze DIR'")
     p.add_argument("--status-port", type=int, default=None,
-                   help="live status server (not ported: refuses, "
-                        "ROADMAP.md A13)")
+                   help="serve the hub's live status plane on this port "
+                        "(/status JSON, /metrics Prometheus text, "
+                        "/healthz; 0 = an ephemeral port)")
     p.add_argument("--status-host", type=str, default="127.0.0.1")
     p.add_argument("--checkpoint-dir", type=str, default=None,
                    help="run-state checkpoints (not ported: refuses, "
@@ -288,9 +298,16 @@ def run(cfg: RunConfig):
     from .utils.vanilla import mesh_ranks, refuse_unported, wheel_dicts
 
     refuse_unported(cfg)
-    # a telemetry session only when one is asked for (the port's
-    # telemetry is in memory; file artifacts refuse, ROADMAP.md A13)
-    obs.maybe_configure_from_env()
+    # the telemetry session: --telemetry-dir wins, then the environment
+    # variable. The ranks of a mesh each open their own session
+    # (utils/sputils.wheel_on_mesh), so the launching process opens none
+    launched = cfg.coordinator is None and mesh_ranks(cfg, warn=False) > 1
+    own = bool(cfg.telemetry_dir) and not launched \
+        and cfg.coordinator is None
+    if own:
+        obs.configure(out_dir=cfg.telemetry_dir, config=cfg.to_dict())
+    elif not launched and cfg.coordinator is None:
+        obs.maybe_configure_from_env()
     if cfg.solve_ef:
         from . import global_toc
         from .core.ef import ExtensiveForm
@@ -319,16 +336,24 @@ def run(cfg: RunConfig):
     else:
         result = wheel_result(spin_the_wheel(*wheel_dicts(cfg)))
     obs.event("run.result", result)
+    if own:
+        # close the session: the footer and the final trace/metrics
+        obs.shutdown()
+    else:
+        obs.flush()
     return result
 
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and argv[0] in ("analyze", "serve"):
-        item = "A13" if argv[0] == "analyze" else "A15"
+    if argv and argv[0] == "analyze":
+        # diagnostics only: reads telemetry artifacts, builds nothing
+        from .obs.analyze import main as analyze_main
+        return analyze_main(argv[1:])
+    if argv and argv[0] == "serve":
         raise NotImplementedError(
-            f"the {argv[0]!r} subcommand is not ported yet (see "
-            f"ROADMAP.md {item})")
+            "the 'serve' subcommand is not ported yet (see ROADMAP.md "
+            "A15)")
     args = make_parser().parse_args(argv)
     result = run(config_from_args(args))
     if result is not None:       # None: a follower rank of a mesh

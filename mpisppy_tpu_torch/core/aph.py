@@ -242,6 +242,10 @@ class APH(PHBase):
         lo = self._row0
         for it in range(1, self.max_iterations + 1):
             self._iter = it
+            rec_on = obs.enabled()
+            if rec_on:
+                pt0 = self._phase_totals()
+                ctr0 = obs.counters_snapshot()
             t_it = _time.perf_counter()
             xn = self.nonants_of(self.x)
             # Update_y on the previously dispatched set (ref. aph.py:
@@ -333,16 +337,13 @@ class APH(PHBase):
                 "solve_path": "chunked-skip" if didx is not None
                 else ("full" if full else "masked-accept"),
                 **(self._phi_stats or {})}
-            if obs.enabled():
+            if rec_on:
                 t_end = _time.perf_counter()
                 obs.complete_span("ph.iteration", t_it, t_end, cat="ph",
                                   args={"iter": it})
                 obs.histogram_observe("ph.iteration_seconds", t_end - t_it)
-                rec = {"iter": it, "conv": self.conv,
-                       "seconds": t_end - t_it, "aph": self._aph_status}
-                if self._stream_source is not None:
-                    rec["stream"] = self._stream_source.status()
-                obs.event("ph.iteration", rec)
+                obs.event("ph.iteration", self.iteration_record(
+                    it, t_end - t_it, pt0, ctr0))
             self._ext("enditer")
 
         if finalize:

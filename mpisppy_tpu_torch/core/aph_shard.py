@@ -14,6 +14,12 @@ the listener exchange rides the native seqlock windows through
 utils/synchronizer.Synchronizer. The in-process APH (core/aph.py)
 stays the one-device path; this module is the multi-process shape.
 
+Telemetry: with a telemetry directory every shard process records into
+it, shard 0 (which carries the wheel's hub) under the plain artifact
+names and shard i under the role ``shard<i>``; the wheel's spoke
+processes record under their own roles (utils/multiproc.py), and the
+launcher merges every process's trace into ``trace_merged.json``.
+
 Reduction layout (per-stage node summands, flattened and concatenated;
 membership columns are global, see shard_batch):
 
@@ -37,7 +43,7 @@ import time
 import numpy as np
 import torch
 
-from .. import global_toc
+from .. import global_toc, obs
 from ..ir.batch import shard_batch
 from ..utils.runtime import to_host
 from ..utils.synchronizer import Synchronizer
@@ -373,14 +379,21 @@ def _shard_batch(model, num_scens, creator_kwargs, lo, hi):
 
 
 def _shard_worker(model, num_scens, creator_kwargs, options, n_shards,
-                  my_shard, prefix, q, device=None, wheel=None):
+                  my_shard, prefix, q, device=None, wheel=None,
+                  telemetry_dir=None):
     """One shard process. ``device``: the engine's device (None for the
     card). ``wheel``: {run_id, spoke_kinds, hub_options} for shard 0 of
     a wheel, which then opens the spoke windows and carries an
-    APHShardHub. Puts (shard, result, stats) on ``q``: the stats (block
-    launches, kernel backends, seconds, peak device memory) ride beside
-    the result."""
+    APHShardHub. ``telemetry_dir``: record into it (shard 0 unsuffixed,
+    the others as ``shard<i>``). Puts (shard, result, stats) on ``q``:
+    the stats (block launches, kernel backends, seconds, peak device
+    memory) ride beside the result."""
     t0 = time.perf_counter()
+    if telemetry_dir:
+        obs.configure(out_dir=telemetry_dir,
+                      role=None if my_shard == 0 else f"shard{my_shard}",
+                      config={"model": model, "num_scens": num_scens,
+                              "n_shards": n_shards, "shard": my_shard})
     try:
         lo, hi = shard_range(num_scens, my_shard, n_shards)
         batch = _shard_batch(model, num_scens, creator_kwargs, lo, hi)
@@ -425,8 +438,12 @@ def _shard_worker(model, num_scens, creator_kwargs, options, n_shards,
                  "seconds": time.perf_counter() - t0,
                  "peak_gb": (torch.cuda.max_memory_allocated(eng.device)
                              / 1e9 if on_card else None)}
+        # this process's artifacts are complete before the launcher
+        # hears of the result (and merges the traces)
+        obs.shutdown()
         q.put((my_shard, res, stats))
     except Exception as e:
+        obs.shutdown()
         # construction failures must reach the queue too, or the parent
         # waits out its timeout
         q.put((my_shard, e, None))
@@ -435,12 +452,14 @@ def _shard_worker(model, num_scens, creator_kwargs, options, n_shards,
 
 def spin_aph_shards(model: str, num_scens: int, options, n_shards: int,
                     creator_kwargs=None, join_timeout=600.0, device=None,
-                    shard_stats=None, _wheel=None):
+                    shard_stats=None, _wheel=None, telemetry_dir=None):
     """One OS process per scenario shard (``spawn`` context: CUDA does
     not survive a fork), each running APHShard on ``device`` (None for
     the card). Returns shard 0's (conv, Eobjective, trivial_bound,
     iters[, outer, inner]); ``shard_stats``, when a list, receives each
-    shard's stats dict (see _shard_worker) in shard order."""
+    shard's stats dict (see _shard_worker) in shard order. With
+    ``telemetry_dir`` every shard records into it (see the module
+    docstring)."""
     import multiprocessing as mp
     import os
     import queue as _queue
@@ -456,7 +475,8 @@ def spin_aph_shards(model: str, num_scens: int, options, n_shards: int,
     procs = [ctx.Process(target=_shard_worker,
                          args=(model, num_scens, creator_kwargs,
                                dict(options or {}), n_shards, i, prefix, q,
-                               device, _wheel if i == 0 else None),
+                               device, _wheel if i == 0 else None,
+                               telemetry_dir),
                          daemon=True)
              for i in range(n_shards)]
     for p in procs:
@@ -497,12 +517,16 @@ def spin_aph_shard_wheel(cfg, n_shards: int, join_timeout=600.0,
     carrying the wheel's hub communicator (cylinders/hub.APHShardHub).
     ``cfg`` is a RunConfig whose hub is "aph"; every process runs on
     ``cfg.device``. Returns (conv, Eobjective, trivial_bound, iters,
-    best_outer, best_inner)."""
+    best_outer, best_inner). With a telemetry directory (the config's,
+    else the environment variable) every process records into it under
+    its role and the traces are merged into ``trace_merged.json`` when
+    the wheel ends; the launching process records nothing itself."""
     import multiprocessing as mp
     import os
     import secrets
 
-    from ..utils.multiproc import (reap, spawn_spoke_processes,
+    from ..utils.multiproc import (merge_run_traces, reap,
+                                   spawn_spoke_processes,
                                    wait_spoke_hellos)
     from ..utils.vanilla import _not_ported, mesh_ranks, refuse_unported
 
@@ -520,6 +544,8 @@ def spin_aph_shard_wheel(cfg, n_shards: int, join_timeout=600.0,
     # K without lowering the whole batch: scenario 0 only
     K = _shard_batch(cfg.model, S, cfg.model_kwargs, 0, 1).K
     run_id = f"/apw{os.getpid():x}{secrets.token_hex(3)}"
+    tdir = cfg.telemetry_dir \
+        or os.environ.get("MPISPPY_TPU_TELEMETRY_DIR") or None
     ctx = mp.get_context("spawn")
     owned, spoke_procs = [], []
     try:
@@ -539,13 +565,18 @@ def spin_aph_shard_wheel(cfg, n_shards: int, join_timeout=600.0,
         wheel = {"run_id": run_id,
                  "spoke_kinds": [sp.kind for sp in cfg.spokes],
                  "hub_options": hub_options}
-        return spin_aph_shards(cfg.model, S, options, n_shards,
-                               creator_kwargs=cfg.model_kwargs,
-                               join_timeout=join_timeout, device=cfg.device,
-                               shard_stats=shard_stats, _wheel=wheel)
+        res = spin_aph_shards(cfg.model, S, options, n_shards,
+                              creator_kwargs=cfg.model_kwargs,
+                              join_timeout=join_timeout, device=cfg.device,
+                              shard_stats=shard_stats, _wheel=wheel,
+                              telemetry_dir=tdir)
     finally:
         for p in spoke_procs:
             p.join(timeout=30.0)
         reap(spoke_procs)
         for w in owned:
             w.close(unlink=True)
+    if tdir:
+        # every shard and spoke closed its session before it exited
+        merge_run_traces(tdir)
+    return res

@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from .. import global_toc, obs
+from ..obs import resource as _obs_resource
 from ..ir.batch import ScenarioBatch
 from ..ops.qp_solver import (QPData, ScaledView, SplitMatrix,
                              mesh_scope, qp_cold_state, qp_dual_objective,
@@ -411,6 +412,14 @@ class PHBase(SPBase):
         self.conv = None
         self._iter = 0
         self.best_bound = -float("inf")
+        # wheel forensics (ops/forensics.py): the device-resident
+        # attribution carry and the latest unpacked sample (a plain
+        # host dict). Sampled every forensics_interval iterations inside
+        # iteration_record, so the layer costs nothing with telemetry
+        # off.
+        self._forensics_every = int(opts.get("forensics_interval", 5))
+        self._forensic_state = None
+        self._forensic_last = None
         self._factors = {}       # prox_on -> (QPFactors, QPData)
         # df32: the first mode's split factors, whose equilibration and
         # scaled split every later mode shares (qp_setup_like)
@@ -1271,13 +1280,17 @@ class PHBase(SPBase):
         plan = self._kernel_plan(skey, factors)
         ent["kernel"] = plan.descriptor()
         acc = ent["acc"]
+        sp_args = {"mode": _mode_str(skey)} if obs.enabled() else None
         t_mark = _time.perf_counter()
 
         def _lap(phase):
             nonlocal t_mark
             now = _time.perf_counter()
             acc[phase] += now - t_mark
-            obs.complete_span(_PHASE_SPAN[phase], t_mark, now, cat="ph")
+            # the span shares _lap's own perf_counter marks, so the
+            # trace's totals are exactly phase_timing's
+            obs.complete_span(_PHASE_SPAN[phase], t_mark, now, cat="ph",
+                              args=sp_args)
             t_mark = now
 
         shrink = self._shrink if not fixed else None
@@ -2054,6 +2067,147 @@ class PHBase(SPBase):
                 "dua_rel_max": float(dua.max()),
                 "dua_rel_mean": float(dua.mean())}
 
+    def _forensic_sample(self, it):
+        """One wheel-forensics sample (ops/forensics.py): the
+        attribution reduction over the current (S, K) hub state on the
+        device, its packed result fetched once at the iteration record,
+        after the iteration's gate synced (``ph.gate_syncs`` does not
+        move), unpacked and handed to the diagnosis engine. On a
+        sharded mesh every rank takes part in the reduction's
+        collectives and packs the unsharded sample. Returns the sample
+        dict, or None when the state is not ready."""
+        if self.x is None or self.conv is None:
+            return None
+        from ..obs import diagnose as _obs_diagnose
+        from ..ops import forensics as _forensics
+        xn = self.nonants_of(self.x)
+        S, K = xn.shape
+        st = self._forensic_state
+        if st is None or st.prev_w.shape != (S, K):
+            # first sample, or a shrink compaction changed the slot
+            # width: restart the carry (validity gates re-arm)
+            st = _forensics.init_state(S, K, dtype=xn.dtype,
+                                       device=xn.device)
+        kk = min(_forensics.TOPK, K)
+        ks = min(_forensics.TOPK, int(self._S_orig))
+        sh = self._shard_ops
+        st, packed = _forensics.forensic_reduce(
+            st, xn, self.xbar, self.W, self.prob, self.rho, kk=kk, ks=ks,
+            mesh=None if sh is None else self.mesh,
+            row_offset=0 if sh is None else self.mesh.row_range(sh.S)[0])
+        self._forensic_state = st
+        fx = _forensics.unpack(packed, kk, ks)
+        fx["it"] = int(it)
+        fx["n_scens"] = int(self._S_orig)
+        fx["n_slots"] = int(K)
+        shrink = None
+        if self._shrink_status is not None:
+            shrink = dict(self._shrink_status)
+            buckets = getattr(self, "_shrink_buckets", None)
+            if buckets:
+                shrink["first_bucket"] = float(buckets[0])
+        _obs_diagnose.note_sample(fx, shrink=shrink)
+        self._forensic_last = fx
+        return fx
+
+    # counters whose per-iteration deltas enter the ph.iteration record
+    # (the JAX package's list; a port run books no jax.* counters, so
+    # jax.compiles never shows in its deltas)
+    _ITER_DELTA_COUNTERS = ("ph.gate_syncs", "ph.chunk_retries",
+                            "ph.hospital_treated", "ph.standing_rows",
+                            "ph.blacklist_readmitted", "qp.donated_passes",
+                            "qp.solve_segments", "jax.compiles",
+                            # sharded engines: collective bytes > 0 and
+                            # device_put bytes == 0 in steady state
+                            "xfer.collective_bytes",
+                            "xfer.device_put_bytes",
+                            # APH φ-dispatch (ops/dispatch): gate syncs
+                            # and solved vs skipped scenario counts
+                            "aph.gate_syncs",
+                            "dispatch.solved_scenarios",
+                            "dispatch.skipped_scenarios",
+                            "dispatch.bucket.compile",
+                            "dispatch.bucket.cache_hit",
+                            # kernel-backend activity (ops/kernels)
+                            "kernel.fused_iters",
+                            "kernel.l_inv_factorizations",
+                            "kernel.bf16_fallbacks",
+                            # scenario streaming (stream/): the
+                            # steady-state flatness analyze asserts
+                            "stream.chunks_shipped",
+                            "stream.bytes_shipped",
+                            "stream.synth_chunks",
+                            "stream.prefetch_stalls",
+                            "stream.direct_fetches",
+                            "stream.compacted_transitions",
+                            "stream.compacted_restage_bytes",
+                            # progressive shrinking (ops/shrink)
+                            "shrink.fixed_new",
+                            "shrink.compactions",
+                            "shrink.transplants",
+                            "shrink.transplant_cold_fallbacks",
+                            # measured roofline (obs/profile.py): the
+                            # analytic FLOPs and bytes booked THIS
+                            # iteration
+                            "profile.flops",
+                            "profile.hbm_bytes")
+
+    def iteration_record(self, it, seconds, phase_before, counters_before):
+        """The structured per-iteration convergence record (the JAX
+        package's): conv, residual summary, best bounds + gap as
+        currently known, this iteration's phase wall-clocks and counter
+        deltas, the shrink / stream / aph / sharding blocks where the
+        engine has them, the measured roofline and, on the forensics
+        interval, a forensic sample. Emitted as the ``ph.iteration``
+        event; only assembled when telemetry is enabled."""
+        fin = obs.finite_or_none
+        rec = {"iter": it, "conv": fin(self.conv), "seconds": seconds,
+               "best_outer": fin(self.best_bound)}
+        if self._shard_ops is not None:
+            rec["sharding"] = {
+                "mode": "sharded",
+                "n_devices": self._shard_ops.n_devices,
+                "shard_scenarios": self._shard_ops.shard_size}
+        if self.spcomm is not None:
+            outer = fin(getattr(self.spcomm, "BestOuterBound", None))
+            inner = fin(getattr(self.spcomm, "BestInnerBound", None))
+            rec["best_outer"] = outer if outer is not None \
+                else rec["best_outer"]
+            rec["best_inner"] = inner
+            if outer is not None and inner is not None and inner != 0:
+                rec["gap_rel"] = (inner - outer) / abs(inner)
+        res = self.residual_summary(True)
+        if res is not None:
+            rec.update(res)
+        if self._shrink_status is not None:
+            rec["shrink"] = dict(self._shrink_status)
+        if self._stream_source is not None:
+            rec["stream"] = self._stream_source.status()
+        aph = getattr(self, "_aph_status", None)
+        if aph:
+            rec["aph"] = dict(aph)
+        now = self._phase_totals()
+        rec["phase_seconds"] = {k: now[k] - phase_before.get(k, 0.0)
+                                for k in now}
+        ctr = obs.counters_snapshot()
+        rec["counter_deltas"] = {
+            k: ctr.get(k, 0) - counters_before.get(k, 0)
+            for k in self._ITER_DELTA_COUNTERS
+            if ctr.get(k, 0) != counters_before.get(k, 0)}
+        deltas = rec["counter_deltas"]
+        from ..obs import profile as _obs_profile
+        fig = _obs_profile.note_iteration(
+            it, seconds, deltas.get("profile.flops", 0),
+            deltas.get("profile.hbm_bytes", 0))
+        if fig is not None:
+            rec["profile"] = fig
+        if self._forensics_every > 0 \
+                and it % self._forensics_every == 0:
+            fx = self._forensic_sample(it)
+            if fx is not None:
+                rec["forensics"] = fx
+        return rec
+
     def iter0_feasible_mask(self, tol=None):
         """(ok_per_scenario, tol): a scenario passes on EITHER the
         absolute or the relative primal residual of its iter-0 solve."""
@@ -2549,22 +2703,31 @@ class PH(PHBase):
                 return self.conv
 
         # Iter k loop (ref. phbase.py:1472 iterk_loop)
+        pt0 = ctr0 = None
         for it in range(1, self.max_iterations + 1):
             self._iter = it
+            rec_on = obs.enabled()
+            if rec_on and ctr0 is None:
+                # the record's windows: phase wall-clock totals and the
+                # counters, diffed after the solve. Later windows open
+                # at the previous record's close, so counters booked by
+                # miditer extensions land in the next iteration's deltas
+                pt0 = self._phase_totals()
+                ctr0 = obs.counters_snapshot()
             t_it = _time.perf_counter()
             self.solve_loop(w_on=True, prox_on=True)
             self.W = self.W_new
-            if obs.enabled():
+            if rec_on:
                 t_end = _time.perf_counter()
                 obs.complete_span("ph.iteration", t_it, t_end, cat="ph",
                                   args={"iter": it})
                 obs.histogram_observe("ph.iteration_seconds", t_end - t_it)
-                rec = {"iter": it, "conv": self.conv,
-                       "seconds": t_end - t_it}
-                if self._stream_source is not None:
-                    # the scenario source's cumulative staging totals
-                    rec["stream"] = self._stream_source.status()
-                obs.event("ph.iteration", rec)
+                obs.event("ph.iteration", self.iteration_record(
+                    it, t_end - t_it, pt0, ctr0))
+                pt0 = self._phase_totals()
+                ctr0 = obs.counters_snapshot()
+                # device memory watermark gauges (a no-op on the CPU)
+                _obs_resource.sample_memory()
             self._ext("miditer")
             if self.spcomm is not None:
                 self.spcomm.sync()

@@ -8,10 +8,12 @@ every spoke window (:356-368). PHHub pushes Ws + nonants and pulls bounds
 each `sync()` (ref. hub.py:417-428).
 
 The port's copy of the JAX package's cylinders/hub.py: engine state is
-read through ``utils.runtime.to_host`` (it may live on the card), and
-the live status plane (``status_port``, live.json) and checkpoints
-(``checkpoint_dir``, ``resume_from``) raise, naming ROADMAP.md A13 and
-A14, since their modules are not ported yet.
+read through ``utils.runtime.to_host`` (it may live on the card). The
+live status plane runs as in the JAX package (``status_port``: /status,
+/metrics and /healthz; live.json beside the telemetry artifacts on
+every termination check; obs/live.py). Checkpoints (``checkpoint_dir``,
+``resume_from``) raise, naming ROADMAP.md A14, since their module is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -97,15 +99,30 @@ class Hub(SPCommunicator):
         # and 500 the scrape.
         self._flow_lock = threading.Lock()
         self._spoke_flow = [self._new_flow() for _ in self.spokes]
-        # the live status plane (the JAX package's obs/live.py) and
-        # durable checkpoints (its ckpt/) are not ported: asking for
-        # either raises instead of running without it
-        for opt, item in (("status_port", "A13"), ("checkpoint_dir", "A14"),
-                          ("resume_from", "A14")):
+        # durable checkpoints (the JAX package's ckpt/) are not ported:
+        # asking for them raises instead of running without them
+        for opt in ("checkpoint_dir", "resume_from"):
             if self.options.get(opt) is not None:
                 raise NotImplementedError(
                     f"hub option {opt!r} is not ported yet (see "
-                    f"ROADMAP.md {item})")
+                    f"ROADMAP.md A14)")
+        # in-run status server (obs/live.py), owned by the hub process:
+        # opt-in via the "status_port" option (RunConfig.status_port /
+        # --status-port; 0 = ephemeral port)
+        self._status_server = None
+        port = self.options.get("status_port")
+        if port is not None:
+            from ..obs.live import LiveStatusServer
+            self._status_server = LiveStatusServer(
+                self, int(port),
+                host=str(self.options.get("status_host",
+                                          "127.0.0.1"))).start()
+        # live.json snapshot throttle (atomic rename on every
+        # termination check, rate-limited so ms-scale toy iterations
+        # don't turn the hub loop into an fsync benchmark)
+        self._live_last_write = 0.0
+        self._live_min_interval = float(
+            self.options.get("live_snapshot_interval", 0.25))
         self.ckpt = None
         self._preempted = False
         self._preempt_lock = threading.Lock()
@@ -458,6 +475,100 @@ class Hub(SPCommunicator):
             out[f"spoke{i}"] = ent
         return out
 
+    def status_snapshot(self):
+        """One JSON-ready view of the live wheel: run identity,
+        iteration, bounds + gap, per-spoke supervisor state and bound
+        flow, phase occupancy. Served by /status and persisted as
+        live.json — every field must stay plain-JSON (the consumers are
+        jax-free tails on other hosts)."""
+        fin = obs.finite_or_none
+        abs_gap, rel_gap = self.compute_gaps()
+        rec = obs.active()
+        sup = self.supervisor
+        spokes = []
+        flow = self.bound_flow_status()
+        # ledger reads on the HTTP thread take the same lock the hub
+        # thread's mutations do
+        with self._flow_lock:
+            gens = [f["gen"] for f in self._spoke_flow]
+        for i, sp in enumerate(self.spokes):
+            cls = getattr(sp, "_spoke_cls", type(sp))
+            ent = {"index": i, "spoke": cls.__name__,
+                   "state": "running", "gen": gens[i],
+                   "crashes": 0, "rejections": 0,
+                   **flow.get(f"spoke{i}", {})}
+            if sup is not None and i < len(sup.health):
+                h = sup.health[i]
+                ent.update(state=h.state, gen=h.gen, crashes=h.crashes,
+                           rejections=h.rejections,
+                           kind=sup.kinds[i])
+                p = sup.procs[i]
+                try:
+                    ent["alive"] = bool(p.is_alive())
+                except Exception:
+                    pass
+            spokes.append(ent)
+        snap = {"type": "live", "schema": obs.SCHEMA_VERSION,
+                "run_id": rec.run_id if rec is not None else None,
+                "hub": type(self).__name__,
+                "request_tag": self.request_tag,
+                "wall_time_unix": time.time(),
+                "t": time.perf_counter(),
+                "elapsed_seconds": time.monotonic() - self._wheel_t0,
+                "iter": getattr(self.opt, "_iter", None),
+                "outer": fin(self.BestOuterBound),
+                "inner": fin(self.BestInnerBound),
+                "abs_gap": fin(abs_gap), "rel_gap": fin(rel_gap),
+                "ob_char": self.latest_ob_char,
+                "ib_char": self.latest_ib_char,
+                "watchdog_fired": self._watchdog_fired,
+                "preempted": self._preempted,
+                # last-checkpoint stamp: checkpoints are not ported
+                # (ROADMAP.md A14), so always None
+                "checkpoint": None,
+                "spokes": spokes}
+        try:
+            pt = self.opt.phase_timing(True) \
+                if hasattr(self.opt, "phase_timing") else None
+        except Exception:   # a racing hub thread must never 500 /status
+            pt = None
+        if pt is not None:
+            snap["phases"] = {
+                "mode": pt.get("mode"),
+                "occupancy": pt.get("occupancy"),
+                "seconds_per_call": pt.get("seconds_per_call")}
+        # measured-roofline tile (obs/profile.py): the most recent
+        # iteration's MFU/HBM figures as a plain dict — analyze --watch
+        # renders this line (None until the first instrumented iter)
+        from ..obs import profile as _obs_profile
+        snap["roofline"] = _obs_profile.last_iteration()
+        # wheel-forensics tile (obs/diagnose.py): the current verdict
+        # + top culprit slot/scenario as a plain dict — analyze --watch
+        # renders this line, serve /status + /metrics ship it per wheel
+        # (None until the first forensic sample or bound check)
+        from ..obs import diagnose as _obs_diagnose
+        snap["forensics"] = _obs_diagnose.snapshot()
+        return snap
+
+    def _write_live_snapshot(self, force=False):
+        """Persist live.json beside the telemetry artifacts (atomic
+        rename, so a SIGKILL mid-write can never leave a torn file).
+        Rate-limited except on ``force`` (watchdog / finalize)."""
+        rec = obs.active()
+        if rec is None or not rec.out_dir:
+            return
+        now = time.monotonic()
+        if not force and now - self._live_last_write \
+                < self._live_min_interval:
+            return
+        self._live_last_write = now
+        from ..obs.live import write_live_snapshot
+        try:
+            write_live_snapshot(rec.out_dir, self.status_snapshot())
+            obs.counter_add("hub.live_snapshots")
+        except OSError:
+            pass    # a full disk must not kill the wheel it observes
+
     # ---- wheel watchdog (doc/fault_tolerance.md) ----
     def fire_watchdog(self, source):
         """Deadline exceeded: terminate the wheel CLEANLY — kill signal
@@ -482,6 +593,7 @@ class Hub(SPCommunicator):
         # a watchdog kill is a premature end: capture the state it
         # would otherwise lose (forced — the interval must not skip
         # the last chance)
+        self._write_live_snapshot(force=True)
         # nonblocking: the timer thread may interrupt a frame holding a
         # sink lock (the same contract as bench's signal-handler flush)
         obs.flush(nonblocking=True)
@@ -514,6 +626,7 @@ class Hub(SPCommunicator):
         # orderly close happens in hub_finalize (which the preempted
         # loop reaches on its next termination check), and the thread
         # is a daemon besides, so even a rough exit cannot hang on it.
+        self._write_live_snapshot(force=True)
         obs.flush(nonblocking=True)
         self.send_terminate()
 
@@ -526,6 +639,23 @@ class Hub(SPCommunicator):
             self.fire_watchdog("hub")
             return True
         return False
+
+    def _ob_spoke_kind(self):
+        """The kind of the spoke that produced the current outer bound
+        (None when unknown): resolved from ``latest_ob_char`` against
+        the live spokes — supervisor kinds when running as processes,
+        the diagnose char table otherwise."""
+        ch = getattr(self, "latest_ob_char", None)
+        if not ch or ch == " ":
+            return None
+        from ..obs.diagnose import SPOKE_CHARS
+        sup = self.supervisor
+        for i, sp in enumerate(self.spokes):
+            if getattr(sp, "converger_spoke_char", None) == ch:
+                if sup is not None and i < len(sup.kinds):
+                    return sup.kinds[i]
+                return SPOKE_CHARS.get(ch, type(sp).__name__.lower())
+        return SPOKE_CHARS.get(ch)
 
     def determine_termination(self) -> bool:
         if self._preempted:
@@ -553,6 +683,19 @@ class Hub(SPCommunicator):
                                               "consumed": f["consumed"]}
                                 for i, f in enumerate(self._spoke_flow)}
                        if self._spoke_flow else None})
+            # the diagnosis engine's bound trajectory (obs/diagnose.py
+            # STALLED_OUTER rule): every check, with the kind of the
+            # spoke that produced the current outer bound attached so
+            # a stall verdict names the frozen spoke
+            from ..obs import diagnose as _obs_diagnose
+            _obs_diagnose.note_bound_check(
+                getattr(self.opt, "_iter", None),
+                fin(self.BestOuterBound), fin(self.BestInnerBound),
+                fin(rel_gap), spoke=self._ob_spoke_kind())
+        # the live plane's tail surface: an atomically-renamed snapshot
+        # beside the telemetry artifacts on every termination check
+        # (rate-limited; obs/live.py)
+        self._write_live_snapshot()
         # rel-gap milestone stamps: the "gap_marks" hub option lists
         # thresholds whose first crossing instant is recorded in
         # self.gap_mark_times (time-to-gap benchmarks read these;
@@ -614,11 +757,21 @@ class Hub(SPCommunicator):
         cs = getattr(self.opt, "close_stream", None)
         if callable(cs):
             cs()
+        # the live plane winds down with the wheel: one final snapshot
+        # (so live.json's last state IS the final state), then the
+        # status server releases its port
+        self._write_live_snapshot(force=True)
+        self.shutdown_live()
         return self.BestOuterBound, self.BestInnerBound
 
     def shutdown_live(self):
-        """Release the live status plane (the launchers call this on
-        their exception paths); the port has none to release."""
+        """Release the status server's port. Idempotent; also called
+        from the wheel launchers' exception paths (sputils /
+        multiproc): a crashed wheel must not leave a daemon thread
+        holding a fixed --status-port for the process lifetime."""
+        if self._status_server is not None:
+            self._status_server.stop()
+            self._status_server = None
 
     def main(self):
         raise NotImplementedError

@@ -1,71 +1,112 @@
-"""Minimal in-process telemetry with the names the engine and the
-wheel call (counters, events, spans, histograms, gauges) — the port's
-copy of the JAX package's obs/ facade, recording in memory only.
+"""Unified telemetry for the port: metrics, events, traces (the port of
+the JAX package's obs/ facade, with its artifact names, event names
+and counter names, so ``analyze`` reads a port run unchanged).
 
-Disabled by default: every call is then one global read and a ``None``
-test. ``configure()`` starts a session; ``events()`` and
-``counters_snapshot()`` read it back (tests and chip_smoke.py use them
-to check, e.g., that no kernel demotion was booked). Cylinder threads
-write concurrently, so the containers are guarded by one lock. File
-artifacts (events.jsonl, trace.json, metrics.json) are not ported
-(ROADMAP.md A13): ``configure(out_dir=...)`` and the telemetry
-environment variable raise.
+One process-wide telemetry session writes three artifacts:
+
+ - ``events.jsonl`` — structured event stream (monotonic stamps, run
+   id, config snapshot in the ``run_header`` line, SCHEMA_VERSION 2),
+ - ``trace.json``  — Chrome trace-event spans of the PH pipeline
+   phases (load into Perfetto / chrome://tracing),
+ - ``metrics.json``— counters / gauges / histograms snapshot.
+
+This module is the FACADE the rest of the package calls: module-level
+functions that forward to the process-wide :class:`Recorder` when one
+is configured and do (almost) nothing when not. The disabled path is a
+single global read + ``is None`` test per call and allocates nothing —
+``span(...)`` returns a shared no-op singleton — so instrumentation
+lives permanently on the PH hot loop.
+
+Usage::
+
+    from mpisppy_tpu_torch import obs
+    obs.configure(out_dir="runs/t1")        # or None for in-memory
+    obs.counter_add("ph.gate_syncs")
+    obs.event("hub.bound", {"kind": "outer", "value": -1.5})
+    with obs.span("ph.iteration", args={"iter": 3}):
+        ...
+    obs.shutdown()
+
+``events()`` reads the session's events back as ``(type, record)``
+pairs (an in-memory session keeps all of them, a file session the
+last 4096); tests and chip_smoke.py check runs through it.
+
+Environment: ``MPISPPY_TPU_TELEMETRY_DIR`` — when set, the first call
+to :func:`maybe_configure_from_env` (the CLI, the process wheels)
+enables telemetry into that directory without code changes.
 """
 
 from __future__ import annotations
 
+import atexit
 import math
 import os
-import threading
-import time
-from collections import defaultdict
+
+from .metrics import Histogram, MetricsRegistry        # noqa: F401
+from .events import EventStream, SCHEMA_VERSION        # noqa: F401
+from .trace import Span, TraceBuffer                   # noqa: F401
+from .recorder import Recorder                         # noqa: F401
 
 _TELEMETRY_ENV = "MPISPPY_TPU_TELEMETRY_DIR"
-
-
-class Recorder:
-    """One telemetry session: counters, gauges, histograms, events,
-    spans — plain Python containers under one lock."""
-
-    def __init__(self):
-        self.lock = threading.Lock()
-        self.counters = defaultdict(float)
-        self.gauges = {}
-        self.histograms = defaultdict(list)
-        self.events = []
-        self.spans = []
-
 
 _REC: Recorder | None = None
 
 
-def _no_files(what):
-    return NotImplementedError(
-        f"{what}: telemetry files are not ported yet; the port records "
-        "in memory only (see ROADMAP.md A13)")
+class _NullSpan:
+    """Shared no-op context manager: the disabled-mode ``span()``
+    result. A singleton so disabled spans allocate nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
 
 
-def configure(out_dir=None) -> Recorder:
-    """Start (or replace) the process-wide in-memory session."""
+_NULL_SPAN = _NullSpan()
+
+
+def configure(out_dir=None, run_id=None, config=None, annotations=False,
+              role=None) -> Recorder:
+    """Start (or replace) the process-wide telemetry session. The old
+    session, if any, is closed first. ``out_dir=None`` records
+    in-memory only (no files). ``role`` suffixes the artifact filenames
+    (``events-<role>.jsonl`` …) so multi-process cylinder runs can
+    share one directory (utils/multiproc.py and core/aph_shard.py set
+    it for their children). ``annotations`` turns the spans' NVTX and
+    profiler ranges on for a whole session (obs/trace.py)."""
     global _REC
-    if out_dir is not None:
-        raise _no_files(f"obs.configure(out_dir={out_dir!r})")
-    _REC = Recorder()
+    if _REC is not None:
+        _REC.close()
+    _REC = Recorder(out_dir=out_dir, run_id=run_id, config=config,
+                    annotations=annotations, role=role)
     return _REC
 
 
-def maybe_configure_from_env() -> Recorder | None:
-    """The JAX package enables file telemetry when its environment
-    variable is set; the port has no file telemetry, so it refuses
-    instead of running without the files that were asked for."""
-    if os.environ.get(_TELEMETRY_ENV) and _REC is None:
-        raise _no_files(f"{_TELEMETRY_ENV} is set")
+def maybe_configure_from_env(role=None) -> Recorder | None:
+    """Enable telemetry when MPISPPY_TPU_TELEMETRY_DIR is set (no-op
+    when unset or when a session is already active)."""
+    d = os.environ.get(_TELEMETRY_ENV)
+    if d and _REC is None:
+        return configure(out_dir=d, role=role)
     return _REC
 
 
-def shutdown() -> None:
+def shutdown():
+    """Close the process-wide session (flushes all artifacts)."""
     global _REC
-    _REC = None
+    if _REC is not None:
+        _REC.close()
+        _REC = None
+
+
+@atexit.register
+def _atexit_close():
+    # a crash-free exit persists trace.json/metrics.json even when the
+    # caller never called shutdown(); events streamed incrementally
+    shutdown()
 
 
 def active() -> Recorder | None:
@@ -76,86 +117,84 @@ def enabled() -> bool:
     return _REC is not None
 
 
-def flush(nonblocking=False):
-    """Persist artifacts: an in-memory session has none."""
-
-
-def counter_add(name, value=1):
+# ---- hot-path forwarding (each: one global read + None test) ----
+def event(etype, fields=None, t=None):
     r = _REC
     if r is not None:
-        with r.lock:
-            r.counters[name] += value
+        r.event(etype, fields, t=t)
 
 
-def counters_snapshot() -> dict:
+def counter_add(name, n=1):
     r = _REC
-    if r is None:
-        return {}
-    with r.lock:
-        return dict(r.counters)
+    if r is not None:
+        r.metrics.counter_add(name, n)
 
 
 def gauge_set(name, value):
     r = _REC
     if r is not None:
-        with r.lock:
-            r.gauges[name] = value
+        r.metrics.gauge_set(name, value)
 
 
 def histogram_observe(name, value):
     r = _REC
     if r is not None:
-        with r.lock:
-            r.histograms[name].append(float(value))
+        r.metrics.histogram_observe(name, value)
+
+
+def span(name, cat="host", args=None, lane=None):
+    r = _REC
+    if r is None:
+        return _NULL_SPAN
+    return r.span(name, cat=cat, args=args, lane=lane)
+
+
+def complete_span(name, t0, t1, cat="host", args=None, lane=None):
+    r = _REC
+    if r is not None:
+        r.trace.complete(name, t0, t1, cat=cat, args=args, lane=lane)
+
+
+def counters_snapshot() -> dict:
+    """Copy of the counter map ({} when telemetry is disabled). Taken
+    under the registry lock — spoke cylinder threads may be
+    inserting new keys concurrently."""
+    r = _REC
+    return r.metrics.counters_snapshot() if r is not None else {}
 
 
 def histogram_snapshot(name) -> dict | None:
-    """count / mean / p50 / p99 / max of one histogram (None when
-    disabled or never observed)."""
+    """Snapshot of one histogram (None when disabled or never
+    observed) — the hub's bound-flow status reads staleness tails
+    through this."""
     r = _REC
-    if r is None:
-        return None
-    with r.lock:
-        vals = sorted(r.histograms.get(name, ()))
-    if not vals:
-        return None
-
-    def q(p):
-        return vals[min(len(vals) - 1, int(p * len(vals)))]
-
-    return {"count": len(vals), "mean": sum(vals) / len(vals),
-            "p50": q(0.5), "p99": q(0.99), "max": vals[-1]}
-
-
-def event(etype, fields=None, t=None):
-    """Book one event, stamped ``t`` (perf_counter; now by default)."""
-    r = _REC
-    if r is not None:
-        rec = dict(fields or {})
-        rec["t"] = time.perf_counter() if t is None else t
-        with r.lock:
-            r.events.append((etype, rec))
+    return r.metrics.histogram_get(name) if r is not None else None
 
 
 def events(etype=None) -> list:
-    """Booked events, optionally only those of one type."""
+    """The session's events as ``(type, record)`` pairs, optionally
+    only those of one type ([] when disabled)."""
     r = _REC
     if r is None:
         return []
-    with r.lock:
-        return [e for e in r.events if etype is None or e[0] == etype]
+    with r.events._lock:
+        tail = list(r.events.tail)
+    return [(e["type"], e) for e in tail
+            if etype is None or e.get("type") == etype]
 
 
-def complete_span(name, t0, t1, cat=None, args=None):
+def flush(nonblocking=False):
+    """Persist artifacts. ``nonblocking=True`` is for signal handlers:
+    skips any sink whose lock the interrupted frame holds."""
     r = _REC
     if r is not None:
-        with r.lock:
-            r.spans.append((name, t0, t1, cat, args))
+        r.flush(nonblocking=nonblocking)
 
 
 def finite_or_none(v):
-    """None for absent or non-finite values (never-established bounds
-    are ±inf, which strict-JSON consumers reject), a float otherwise."""
+    """THE sanitizer for bound/gap fields in telemetry events: None for
+    absent or non-finite values (never-established bounds are ±inf,
+    which strict-JSON consumers reject), a plain float otherwise."""
     try:
         v = float(v)
     except (TypeError, ValueError):

@@ -28,6 +28,8 @@ from __future__ import annotations
 
 import torch
 
+from .. import obs
+
 GATE_HEAD = 7   # scalar head width of both gate spellings
 
 
@@ -73,19 +75,37 @@ def _head(tau, phi, theta, conv, phis, S_real):
     return torch.cat([scal, stats])
 
 
+def _profiled(entry, fn, phis, reads, writes):
+    """``fn()``, booked on the measured roofline (obs/profile.py) as an
+    (S,)-row op of ``reads`` inputs and ``writes`` outputs when
+    telemetry is on."""
+    if not obs.enabled():
+        return fn()
+    from ..obs import profile as _profile
+    S = int(phis.shape[0])
+    return _profile.call(
+        entry, fn, lambda _: ((S,), *_profile.elementwise(
+            S, reads, writes, itemsize=phis.element_size())),
+        device=phis.device)
+
+
 def dispatch_gate(tau, phi, theta, conv, phis, last_dispatch, scnt: int,
                   S_real: int):
     """One packed device row for APH's per-iteration host read:
     ``[τ, φ, θ, conv, φ_min, φ_max, φ_neg_count] ++ mask``."""
-    mask = dispatch_select(phis, last_dispatch, scnt, S_real)
-    return torch.cat([_head(tau, phi, theta, conv, phis, S_real),
-                      mask.to(phis.dtype)])
+    def gate():
+        mask = dispatch_select(phis, last_dispatch, scnt, S_real)
+        return torch.cat([_head(tau, phi, theta, conv, phis, S_real),
+                          mask.to(phis.dtype)])
+    return _profiled("aph.dispatch_gate", gate, phis, 2, 1)
 
 
 def scalar_gate(tau, phi, theta, conv, phis, S_real: int):
     """The full-dispatch twin of :func:`dispatch_gate`: every real row
     dispatches, so only the scalar head ships."""
-    return _head(tau, phi, theta, conv, phis, S_real)
+    return _profiled("aph.scalar_gate",
+                     lambda: _head(tau, phi, theta, conv, phis, S_real),
+                     phis, 1, 0)
 
 
 def gather_rows(full, idx):

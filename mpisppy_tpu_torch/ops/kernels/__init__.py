@@ -143,15 +143,44 @@ def kernel_solve(plan: KernelPlan, factors, data, q, state, *,
                     adaptive_rho=adaptive_rho)
     if plan.backend == "cuda":
         n0 = admm_block.thread_launches()
-        x_s, yA_s, yB_s, zA_s, zB_s, _, _ = admm_block.fused_admm_block(
-            factors, data, q, state, n_steps=max_iter,
-            sigma=plan.sigma_host)
+
+        def block():
+            return admm_block.fused_admm_block(
+                factors, data, q, state, n_steps=max_iter,
+                sigma=plan.sigma_host)
+        if obs.enabled():
+            # the measured roofline (obs/profile.py): the block's work
+            # from the operand shapes and the steps, whichever version
+            # (the kernel, or its plain version on CPU tensors) runs
+            from ...obs import profile as _profile
+            out = _profile.call("kernel.cuda", block,
+                                lambda _: block_work(factors, state,
+                                                     max_iter),
+                                device=state.x.device)
+        else:
+            out = block()
+        x_s, yA_s, yB_s, zA_s, zB_s, _, _ = out
         plan.launches += admm_block.thread_launches() - n0
         st = state._replace(x=x_s, yA=yA_s, yB=yB_s, zA=zA_s, zB=zB_s)
         st, x, yA, yB = qp_solve(factors, data, q, st, max_iter=0,
                                  **solve_kw)
         return st._replace(iters=int(max_iter)), x, yA, yB
     return qp_solve(factors, data, q, state, max_iter=max_iter, **solve_kw)
+
+
+def block_work(factors, state, n_steps):
+    """(shape key, flops, bytes) of one ADMM block call of ``n_steps``
+    on ``state``'s rows (obs/profile.block_cost): the block's solve
+    operator is the f64 explicit inverse (one (n, n) matrix) or the
+    L⁻¹ pair (two)."""
+    from ...obs.profile import block_cost
+    from ..qp_solver import LInv
+    S, n = state.x.shape
+    m = factors.A_s.shape[0]
+    f_mats = 2 if isinstance(state.L, LInv) else 1
+    flops, nbytes = block_cost(S, m, n, n_steps, f_mats=f_mats,
+                               itemsize=state.x.element_size())
+    return (S, m, n, int(n_steps), f_mats), flops, nbytes
 
 
 def est_hbm_bytes_per_iter(*, n, m, s_chunk, pk_pass_bytes=None,

@@ -10,6 +10,7 @@ Cylinder threads may reach their first launch together, so building
 and loading run under one thread lock; the processes of a process
 wheel may too, so the build also runs under a file lock in the build
 directory (``file_lock``), and each build is renamed into place.
+Each build that runs is booked as a ``kernel.build`` telemetry event.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+from ... import obs
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -92,6 +95,10 @@ def _build_all_locked() -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src.name}:\n{log}")
         os.replace(tmp, lib)
+        # the port's one compile of a run (no jit): a telemetry event,
+        # outside analyze's compile ledger
+        obs.event("kernel.build", {"source": src.name,
+                                   "seconds": BUILD_INFO[src.stem]["seconds"]})
     return out
 
 

@@ -43,7 +43,8 @@ def l_inv_profitable(n, s_chunk, tail_iter, ir_sweeps=1):
 def _fused_mixed_impl(factors, A_lo, data, q, state, eps_abs, eps_rel,
                       eps_abs_dua, eps_rel_dua, *, bulk_iter, tail_iter,
                       check_every, adaptive_rho, polish, polish_iters,
-                      polish_chunk, stall_rel, ir_sweeps, l_inv, alpha=1.6):
+                      polish_chunk, stall_rel, ir_sweeps, l_inv, alpha=1.6,
+                      info=None):
     """qp_solve_mixed's phases as two solve calls: the same eps floors,
     factor handoff and budget split, without segments."""
     lo = torch.float32
@@ -74,6 +75,8 @@ def _fused_mixed_impl(factors, A_lo, data, q, state, eps_abs, eps_rel,
         eps_rel_lo, alpha, adaptive_rho, False, polish_iters, 0, eps_lo,
         eps_rel_lo_dua, stall_rel)
 
+    if info is not None:
+        info["bulk"] = st_lo
     # handoff: rho and (in split mode) the f32 factor carry over
     rho_hi = st_lo.rho_scale.to(dt_hi)
     L_hi = st_lo.L
@@ -113,11 +116,46 @@ def fused_mixed_solve(factors, A_lo, data, q, state, *, bulk_iter,
             obs.counter_add("kernel.l_inv_factorizations")
             state = state._replace(L=make_l_inv(L))
     obs.counter_add("qp.solve_segments")
-    return _fused_mixed_impl(
-        factors, A_lo, data, q, state, eps_abs, eps_rel, eps_abs_dua,
-        eps_rel_dua, bulk_iter=int(bulk_iter), tail_iter=int(tail_iter),
-        check_every=int(check_every), adaptive_rho=bool(adaptive_rho),
-        polish=bool(polish), polish_iters=int(polish_iters),
-        polish_chunk=int(polish_chunk), stall_rel=float(stall_rel),
-        ir_sweeps=int(ir_sweeps), l_inv=bool(l_inv))
+    info = {} if obs.enabled() else None
+
+    def solve():
+        return _fused_mixed_impl(
+            factors, A_lo, data, q, state, eps_abs, eps_rel, eps_abs_dua,
+            eps_rel_dua, bulk_iter=int(bulk_iter),
+            tail_iter=int(tail_iter), check_every=int(check_every),
+            adaptive_rho=bool(adaptive_rho), polish=bool(polish),
+            polish_iters=int(polish_iters),
+            polish_chunk=int(polish_chunk), stall_rel=float(stall_rel),
+            ir_sweeps=int(ir_sweeps), l_inv=bool(l_inv), info=info)
+    if info is None:
+        return solve()
+    from ...obs import profile as _profile
+    return _profile.call(
+        "kernel.fused_mixed", solve,
+        lambda out: _fused_mixed_work(factors, data, info["bulk"], out[0],
+                                      int(check_every), int(ir_sweeps)),
+        device=state.x.device)
+
+
+def _fused_mixed_work(factors, data, st_lo, st, check_every, ir_sweeps):
+    """(shape key, flops, bytes) of one fused mixed/df32 call: the f32
+    bulk's steps at 4-byte operands plus the tail's (the call's total
+    ``iters`` less the bulk's) at the tail's precision, each with its
+    residual checks (obs/profile.qp_cost)."""
+    from ...obs.profile import qp_cost
+    A_s = factors.A_s
+    S, n = st.x.shape
+    m = data.l.shape[-1]
+    shared = A_s.ndim == 2
+    split = isinstance(A_s, SplitMatrix)
+    k_lo = int(st_lo.iters)
+    k_hi = int(st.iters) - k_lo
+    f_lo, b_lo = qp_cost(S, m, n, k_lo, check_every, shared=shared,
+                         itemsize=4)
+    f_hi, b_hi = qp_cost(S, m, n, k_hi, check_every, shared=shared,
+                         f_mats=2 if split and isinstance(st.L, LInv)
+                         else 1, ir_sweeps=ir_sweeps if split else 0,
+                         itemsize=st.x.element_size())
+    return ((S, m, n, k_lo, k_hi, check_every, shared, split),
+            f_lo + f_hi, b_lo + b_hi)
 

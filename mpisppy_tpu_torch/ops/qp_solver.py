@@ -1058,7 +1058,39 @@ def _polish_select(A_s, P_s, g, D, E, Eb, csx, sigma, data, q, q_s,
 def qp_solve(factors: QPFactors, data: QPData, q, state: QPState, **kw):
     """One solve (see _solve_impl for the algorithm and options)."""
     obs.counter_add("qp.solve_segments")
+    if obs.enabled():
+        # the measured roofline (obs/profile.py): booked after the call
+        # from the iteration count the solve read to decide its exit
+        from ..obs import profile as _profile
+        return _profile.call(
+            "qp.solve", lambda: _solve_impl(factors, data, q, state, **kw),
+            lambda out: solve_work(factors, data, out[0],
+                                   kw.get("check_every", 25),
+                                   kw.get("ir_sweeps", 1)),
+            device=state.x.device)
     return _solve_impl(factors, data, q, state, **kw)
+
+
+def solve_work(factors: QPFactors, data: QPData, state: QPState,
+               check_every, ir_sweeps=1):
+    """(shape key, flops, bytes) of a finished solve of ``state.iters``
+    ADMM steps (obs/profile.qp_cost): the shapes, the steps and the
+    check cadence, not the code that ran them. A df32 (SplitMatrix)
+    solve refines each x-update ``ir_sweeps`` times."""
+    from ..obs.profile import qp_cost
+    A_s = factors.A_s
+    S, n = state.x.shape
+    m = data.l.shape[-1]
+    shared = A_s.ndim == 2
+    split = isinstance(A_s, SplitMatrix)
+    r = int(ir_sweeps) if split else 0
+    f_mats = 2 if split and isinstance(state.L, LInv) else 1
+    it = int(state.iters)
+    flops, nbytes = qp_cost(S, m, n, it, check_every, shared=shared,
+                            f_mats=f_mats, ir_sweeps=r,
+                            itemsize=state.x.element_size())
+    return (S, m, n, it, int(check_every), shared, f_mats, r,
+            str(state.x.dtype)), flops, nbytes
 
 
 def qp_solve_segmented(factors: QPFactors, data: QPData, q, state: QPState,
@@ -1168,9 +1200,20 @@ def qp_solve_mixed(factors: QPFactors, data: QPData, q, state: QPState,
     lo_total = 0
     while lo_total < max_iter:
         obs.counter_add("qp.solve_segments")
-        st_lo = _solve_lo_impl(f_lo, d_lo, q_lo, st_lo, seg_lo, check_every,
-                               eps_lo, eps_rel_lo, alpha, adaptive_rho,
-                               polish_iters, eps_rel_lo_dua, stall_rel)
+
+        def seg(st_lo=st_lo):
+            return _solve_lo_impl(f_lo, d_lo, q_lo, st_lo, seg_lo,
+                                  check_every, eps_lo, eps_rel_lo, alpha,
+                                  adaptive_rho, polish_iters,
+                                  eps_rel_lo_dua, stall_rel)
+        if obs.enabled():
+            from ..obs import profile as _profile
+            st_lo = _profile.call(
+                "qp.solve_lo", seg,
+                lambda out: solve_work(f_lo, d_lo, out, check_every, 0),
+                device=st_lo.x.device)
+        else:
+            st_lo = seg()
         ran = st_lo.iters
         lo_total += ran
         if ran < seg_lo:

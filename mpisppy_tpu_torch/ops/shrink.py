@@ -37,6 +37,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import obs
 from .qp_solver import QPData
 
 # "never fix" threshold sentinel (2^30 consecutive converged iterations)
@@ -59,9 +60,34 @@ def _over_ranks(mesh, t, how):
     return mesh.all_max(t) if how == "max" else mesh.all_sum(t)
 
 
+def _profiled(entry, fn, xn, reads, writes):
+    """``fn()``, booked on the measured roofline (obs/profile.py) as an
+    elementwise pass over the (S, K) nonant block with ``reads`` inputs
+    and ``writes`` outputs of its size, when telemetry is on."""
+    if not obs.enabled():
+        return fn()
+    from ..obs import profile as _profile
+    S, K = (int(v) for v in xn.shape)
+    return _profile.call(
+        entry, fn, lambda _: ((S, K), *_profile.elementwise(
+            S * K, reads, writes, itemsize=xn.element_size())),
+        device=xn.device)
+
+
 def fixer_update(conv_count, lb_count, ub_count, fixed_mask, fixed_vals,
                  xbar, xsqbar, xn, slot_lb, slot_ub, tol, boundtol, nbc,
                  lbc, ubc, imask, mesh=None):
+    """One ``miditer`` of the WW fixer as device ops (see
+    :func:`_fixer_update`), booked as ``shrink.fixer_update``."""
+    return _profiled("shrink.fixer_update", lambda: _fixer_update(
+        conv_count, lb_count, ub_count, fixed_mask, fixed_vals, xbar,
+        xsqbar, xn, slot_lb, slot_ub, tol, boundtol, nbc, lbc, ubc,
+        imask, mesh), xn, 4, 1)
+
+
+def _fixer_update(conv_count, lb_count, ub_count, fixed_mask, fixed_vals,
+                  xbar, xsqbar, xn, slot_lb, slot_ub, tol, boundtol, nbc,
+                  lbc, ubc, imask, mesh=None):
     """One ``miditer`` of the WW fixer as device ops, the host Fixer's
     pass exactly: variance test per slot, parked-at-bound streaks,
     lb > ub > nb precedence, integral snap, accumulate-only fixing.
@@ -96,6 +122,14 @@ def fixer_update(conv_count, lb_count, ub_count, fixed_mask, fixed_vals,
 
 def per_slot_rho_update(rho, prob, xn, xbar, xbar_prev, mult, factor,
                         mesh=None):
+    """The per-slot rho update (see :func:`_per_slot_rho_update`),
+    booked as ``shrink.rho_update``."""
+    return _profiled("shrink.rho_update", lambda: _per_slot_rho_update(
+        rho, prob, xn, xbar, xbar_prev, mult, factor, mesh), xn, 4, 1)
+
+
+def _per_slot_rho_update(rho, prob, xn, xbar, xbar_prev, mult, factor,
+                         mesh=None):
     """Residual-balancing rho update PER NONANT SLOT: prim_k is the
     probability-weighted primal residual of slot k, dual_k the
     rho-scaled dual residual; slots with prim > mult*dual scale up,

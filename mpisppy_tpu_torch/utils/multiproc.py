@@ -18,22 +18,59 @@ algebra library in its constructing thread.
 
 The wheel is supervised (cylinders/supervisor.py): dead spokes are
 respawned on fresh window pairs, repeat offenders quarantined, and
-``wheel_deadline`` arms a watchdog. What the port does not run yet
-raises, naming its ROADMAP.md item (checkpoints and resumes: A14;
-telemetry files: A13; the fault-injection plans of the JAX package's
-testing/faults wait for a later slice).
+``wheel_deadline`` arms a watchdog. Telemetry: every child records
+into the run's telemetry directory under its own role
+(``events-spoke<i>-<kind>.jsonl``, ``trace-...``, ``metrics-...``), and
+the hub merges every process's trace into one ``trace_merged.json``
+with one track per process after the wheel ends (obs/merge.py). What
+the port does not run yet raises, naming its ROADMAP.md item
+(checkpoints and resumes: A14; the fault-injection plans of the JAX
+package's testing/faults wait for a later slice).
 """
 
 from __future__ import annotations
 
 import multiprocessing as mp
+import os
 import secrets
 import time
 
-from .. import global_toc
+from .. import global_toc, obs
 from ..cylinders.spcommunicator import LINEAGE_SLOTS, Window
 from ..cylinders.spoke import ConvergerSpokeType
 from .config import RunConfig, config_from_dict
+
+
+def _telemetry_out_dir(cfg):
+    """The run directory the children capture into: the config's
+    ``telemetry_dir`` wins, then a programmatically configured parent
+    session (``obs.configure(out_dir=...)``), then the environment
+    variable the spawned children inherit anyway."""
+    d = getattr(cfg, "telemetry_dir", None)
+    if d:
+        return d
+    rec = obs.active()
+    if rec is not None and rec.out_dir:
+        return rec.out_dir
+    return os.environ.get("MPISPPY_TPU_TELEMETRY_DIR") or None
+
+
+def merge_run_traces(tdir):
+    """Persist this process's trace, then merge every process's trace
+    in ``tdir`` onto one wall-clock timeline (``trace_merged.json``).
+    Returns its path, or None. A failed merge is reported, never
+    raised: diagnostics must not kill a finished run."""
+    obs.flush()
+    from ..obs.merge import merge_traces
+    try:
+        merged = merge_traces(tdir)
+        if merged:
+            global_toc(f"telemetry: merged multi-process trace -> "
+                       f"{merged}")
+        return merged
+    except Exception as e:
+        global_toc(f"telemetry: trace merge failed: {e!r}")
+        return None
 
 
 class SpokeProxy:
@@ -65,11 +102,19 @@ class SpokeProxy:
             + LINEAGE_SLOTS
 
 
-def _spoke_worker(cfg_dict, spoke_cfg_dict, hub_name, my_name):
+def _spoke_worker(cfg_dict, spoke_cfg_dict, hub_name, my_name,
+                  telemetry=None):
     """Runs in the child process: build the engine from the config on
     the config's device, wire the shared windows, send the startup
-    hello and loop until the hub's kill signal."""
+    hello and loop until the hub's kill signal. ``telemetry`` ({out_dir,
+    role}) opens this process's own session under its role."""
     import numpy as np
+
+    if telemetry and telemetry.get("out_dir"):
+        obs.configure(out_dir=telemetry["out_dir"],
+                      role=telemetry.get("role"), config=spoke_cfg_dict)
+    elif telemetry:
+        obs.maybe_configure_from_env(role=telemetry.get("role"))
 
     from .config import SpokeConfig
     from .vanilla import spoke_dict
@@ -91,6 +136,10 @@ def _spoke_worker(cfg_dict, spoke_cfg_dict, hub_name, my_name):
         spoke.main()
         spoke.finalize()
     finally:
+        # flush + close this process's telemetry BEFORE the windows
+        # drop, so the hub's merge right after the join sees complete
+        # role artifacts
+        obs.shutdown()
         spoke.hub_window.close(unlink=False)
         spoke.my_window.close(unlink=False)
 
@@ -135,9 +184,15 @@ def _spawn_one_spoke(cfg: RunConfig, i, run_id, ctx, S, K, gen=0):
 
     sp = cfg.spokes[i]
     proxy = _spoke_proxy(sp.kind, run_id, i, S, K, create=True, gen=gen)
+    # each child captures into the shared run dir under its own role,
+    # so artifacts never clobber; a respawned incarnation gets a
+    # gen-suffixed role so the dead child's events survive beside it
+    telemetry = {"out_dir": _telemetry_out_dir(cfg),
+                 "role": f"spoke{i}-{sp.kind}" + (f"-r{gen}" if gen
+                                                  else "")}
     p = ctx.Process(target=_spoke_worker,
                     args=(cfg.to_dict(), asdict(sp),
-                          *_spoke_window_names(run_id, i, gen)),
+                          *_spoke_window_names(run_id, i, gen), telemetry),
                     daemon=True)
     p.start()
     return proxy, p
@@ -200,8 +255,6 @@ def spin_the_wheel_processes(cfg: RunConfig, join_timeout=None,
     The hub waits up to ``spoke_ready_timeout`` for every spoke's hello
     before iterating. Both timeouts default from the config
     (``cfg.join_timeout`` / ``cfg.spoke_ready_timeout``)."""
-    import os
-
     from .vanilla import _not_ported, hub_dict, mesh_ranks, \
         refuse_unported
 
@@ -218,6 +271,11 @@ def spin_the_wheel_processes(cfg: RunConfig, join_timeout=None,
     spoke_ready_timeout = cfg.spoke_ready_timeout \
         if spoke_ready_timeout is None else spoke_ready_timeout
 
+    # a config-carried telemetry dir opens the hub's session too
+    # (programmatic callers bypass __main__.run): the hub's own
+    # artifacts must land beside the spokes' for the merge
+    if cfg.telemetry_dir and not obs.enabled():
+        obs.configure(out_dir=cfg.telemetry_dir, config=cfg.to_dict())
     hub_d = hub_dict(cfg)
     hub_opt = hub_d["opt_class"](**hub_d["opt_kwargs"])
     S, K = hub_opt._S_orig, hub_opt.batch.K
@@ -262,6 +320,11 @@ def spin_the_wheel_processes(cfg: RunConfig, join_timeout=None,
                     p.terminate()
         hub.receive_bounds()
         hub.hub_finalize()
+        tdir = _telemetry_out_dir(cfg)
+        if tdir:
+            # every child flushed its role artifacts before its join
+            # returned: one wall-clock-aligned timeline of all processes
+            merge_run_traces(tdir)
         return hub
     except BaseException:
         # startup-failure cleanup: a hello timeout (or any raise before
@@ -269,6 +332,8 @@ def spin_the_wheel_processes(cfg: RunConfig, join_timeout=None,
         if supervisor is not None:
             supervisor.shutdown()
         reap(procs)
+        if 'hub' in locals():
+            hub.shutdown_live()
         raise
     finally:
         for w in owned:

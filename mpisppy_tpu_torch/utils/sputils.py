@@ -248,7 +248,26 @@ def wheel_result(wheel):
 def wheel_on_mesh(mesh, cfg):
     """One rank of a wheel whose hub engine is sharded over ``mesh``
     (parallel/launch.launch runs it on every rank): rank 0 returns the
-    wheel's result dict, the other ranks None."""
+    wheel's result dict, the other ranks None. With a telemetry
+    directory (``cfg.telemetry_dir`` or the environment variable) rank
+    0 records into it and every other rank opens an in-memory session:
+    the per-iteration record's reductions are collectives, so the ranks
+    record together or not at all, and one rank's files describe the
+    run."""
+    import os
+
+    from .. import obs
     from .vanilla import wheel_dicts
-    wheel = spin_the_wheel(*wheel_dicts(cfg, mesh=mesh))
-    return None if wheel is None else wheel_result(wheel)
+    tdir = cfg.telemetry_dir or os.environ.get("MPISPPY_TPU_TELEMETRY_DIR")
+    if tdir:
+        obs.configure(out_dir=tdir if mesh.rank == 0 else None,
+                      config=cfg.to_dict())
+    try:
+        wheel = spin_the_wheel(*wheel_dicts(cfg, mesh=mesh))
+        result = None if wheel is None else wheel_result(wheel)
+        if result is not None:
+            obs.event("run.result", result)
+        return result
+    finally:
+        if tdir:
+            obs.shutdown()

@@ -7,8 +7,8 @@ consumes, one factory per cylinder kind. Every cylinder gets its OWN
 engine over one shared host batch, on the run's ``device`` (None = the
 CUDA device). What the port does not run yet raises, naming its
 ROADMAP.md item: the cross-scenario spoke, the FWPH spoke beside a
-sharded hub, checkpoints (a streamed wheel's included) and the live
-plane (the streaming section of analyze included).
+sharded hub and checkpoints (a streamed wheel's included). The live
+status plane (``status_port``) rides to the hub as in the JAX package.
 
 Scenario sources (``scenario_source``, mpisppy_tpu_torch/stream): a
 streamed or synthesized wheel is hub-only, as in the JAX package; a
@@ -51,9 +51,6 @@ def refuse_unported(cfg: RunConfig):
     if mesh_ranks(cfg, warn=False) > 1 \
             and any(sp.kind == "fwph" for sp in cfg.spokes):
         raise _not_ported("the FWPH spoke beside a sharded hub", "A8b")
-    if cfg.telemetry_dir or cfg.status_port is not None:
-        raise _not_ported("telemetry files and the live status plane",
-                          "A13")
     if cfg.checkpoint_dir or cfg.resume_from:
         raise _not_ported("checkpoints and resumes", "A14")
 
@@ -189,6 +186,10 @@ def hub_dict(cfg: RunConfig, batch=None, mesh=None):
         hub_kwargs["options"]["abs_gap"] = cfg.abs_gap
     if cfg.wheel_deadline is not None:
         hub_kwargs["options"]["wheel_deadline"] = cfg.wheel_deadline
+    if cfg.status_port is not None:
+        # the hub process owns the live status server (obs/live.py)
+        hub_kwargs["options"]["status_port"] = cfg.status_port
+        hub_kwargs["options"]["status_host"] = cfg.status_host
     if "crossed_bound_tol" in cfg.supervisor:
         hub_kwargs["options"]["crossed_bound_tol"] = \
             cfg.supervisor["crossed_bound_tol"]

@@ -17,6 +17,9 @@ from mpisppy_tpu_torch import obs
 from mpisppy_tpu_torch.ops import kernels
 from mpisppy_tpu_torch.ops import qp_solver as T
 from mpisppy_tpu_torch.ops.kernels import admm_block
+from torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _tiny_arrays(S=3, m=6, n=4, seed=0):

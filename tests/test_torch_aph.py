@@ -10,6 +10,7 @@ subproblem solves are converged, so the parity runs solve to 1e-13
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from mpisppy_tpu import obs as jax_obs
@@ -22,6 +23,9 @@ from mpisppy_tpu_torch import obs
 from mpisppy_tpu_torch.core.aph import APH, _aph_update
 from mpisppy_tpu_torch.ir.batch import build_batch
 from mpisppy_tpu_torch.models import farmer, uc
+from torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 EF3 = -108390.0
 _UC_KW = {"num_gens": 3, "num_hours": 6}

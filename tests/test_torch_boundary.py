@@ -16,6 +16,9 @@ import mpisppy_tpu_torch
 from mpisppy_tpu_torch.ir.batch import build_batch
 from mpisppy_tpu_torch.models import farmer
 from mpisppy_tpu_torch.utils import runtime
+from torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "mpisppy_tpu_torch")
@@ -80,7 +83,22 @@ def test_every_module_imports_with_jax_poisoned():
               "mpisppy_tpu_torch.stream.quant",
               "mpisppy_tpu_torch.stream.synth",
               "mpisppy_tpu_torch.stream.pipeline",
-              "mpisppy_tpu_torch.stream.source"):
+              "mpisppy_tpu_torch.stream.source",
+              # device-side observability: the telemetry session, the
+              # roofline, resource accounting, forensics, the live plane
+              # and analyze (the jax-free ones the port's own copies)
+              "mpisppy_tpu_torch.obs",
+              "mpisppy_tpu_torch.obs.analyze",
+              "mpisppy_tpu_torch.obs.diagnose",
+              "mpisppy_tpu_torch.obs.events",
+              "mpisppy_tpu_torch.obs.live",
+              "mpisppy_tpu_torch.obs.merge",
+              "mpisppy_tpu_torch.obs.metrics",
+              "mpisppy_tpu_torch.obs.profile",
+              "mpisppy_tpu_torch.obs.recorder",
+              "mpisppy_tpu_torch.obs.resource",
+              "mpisppy_tpu_torch.obs.trace",
+              "mpisppy_tpu_torch.ops.forensics"):
         assert m in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"

@@ -14,6 +14,9 @@ import torch
 
 from mpisppy_tpu_torch.ops import qp_solver as T
 from mpisppy_tpu_torch.ops.kernels import admm_block
+from torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _tiny(S, device, seed=2, m=6, n=4, density=1.0):

@@ -32,6 +32,9 @@ from mpisppy_tpu_torch.models import uc
 from mpisppy_tpu_torch.ops import kernels
 from mpisppy_tpu_torch.ops import qp_solver as T
 from mpisppy_tpu_torch.ops.kernels import reference as R
+from torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _t(a):

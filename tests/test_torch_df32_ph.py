@@ -24,6 +24,9 @@ from mpisppy_tpu_torch.core.ph import PHBase
 from mpisppy_tpu_torch.ir.batch import build_batch
 from mpisppy_tpu_torch.models import uc
 from mpisppy_tpu_torch.ops import qp_solver as T
+from torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 # ---------------- PH engines ----------------

@@ -18,6 +18,9 @@ from mpisppy_tpu_torch.core.ph import PH, PHBase
 from mpisppy_tpu_torch.ir.batch import build_batch
 from mpisppy_tpu_torch.models import farmer, uc
 from mpisppy_tpu_torch.ops import incumbent as inc
+from torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 _UC_KW = {"num_gens": 3, "num_hours": 6}
 _UC_INT = {**_UC_KW, "relax_integrality": False}

@@ -9,6 +9,9 @@ from mpisppy_tpu.models import farmer as jax_farmer
 from mpisppy_tpu.models import uc as jax_uc
 from mpisppy_tpu_torch.ir.batch import build_batch
 from mpisppy_tpu_torch.models import farmer, uc
+from torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 _FIELDS = ("c", "c0", "P_diag", "A", "l", "u", "lb", "ub", "c_stage",
            "c0_stage", "prob", "nonant_idx", "nonant_stage")

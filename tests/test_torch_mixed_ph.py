@@ -16,6 +16,9 @@ from mpisppy_tpu.models import uc as jax_uc
 from mpisppy_tpu_torch.core.ph import PH, PHBase
 from mpisppy_tpu_torch.ir.batch import build_batch
 from mpisppy_tpu_torch.models import farmer, uc
+from torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _uc_batches(S=4, patch=False, G=3, T_=6):

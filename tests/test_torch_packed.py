@@ -28,6 +28,9 @@ from mpisppy_tpu_torch.models import uc
 from mpisppy_tpu_torch.ops import kernels
 from mpisppy_tpu_torch.ops import packed as P
 from mpisppy_tpu_torch.ops import qp_solver as T
+from torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 _UC_A_KW = dict(num_gens=6, num_hours=12, relax_integrality=True,
                 min_up_down=True, ramping=True)

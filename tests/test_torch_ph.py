@@ -14,6 +14,9 @@ from mpisppy_tpu_torch.core.ph import PH
 from mpisppy_tpu_torch.ir.batch import build_batch
 from mpisppy_tpu_torch.models import farmer, uc
 from mpisppy_tpu_torch.utils.carry import from_numpy_state
+from torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 _UC_KW = {"num_gens": 3, "num_hours": 6}
 # the slice's options at this size (the block runs the whole budget at

@@ -20,6 +20,9 @@ from mpisppy_tpu_torch.utils.config import AlgoConfig, RunConfig, SpokeConfig
 from mpisppy_tpu_torch.utils.multiproc import (_spoke_window_names,
                                                spin_the_wheel_processes)
 from mpisppy_tpu_torch.utils.synchronizer import Synchronizer
+from torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 EF3 = -108390.0
 

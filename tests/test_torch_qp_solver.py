@@ -12,6 +12,9 @@ from mpisppy_tpu.ir.batch import build_batch as jax_build_batch
 from mpisppy_tpu.models import farmer as jax_farmer
 from mpisppy_tpu.ops import qp_solver as J
 from mpisppy_tpu_torch.ops import qp_solver as T
+from torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _tiny_arrays(S=3, m=6, n=4, seed=0):

@@ -536,10 +536,35 @@ _STREAMED = ["farmer", "--scenario-source", "streamed",
     (_STREAMED + ["--checkpoint-dir", "c"], "A14"),
     (_STREAMED + ["--resume-from", "c"], "A14"),
     (["serve", "--scenario-source", "streamed"], "A15")])
-def test_cli_refuses_what_streaming_still_lacks(argv, item):
-    """Streaming's analyze section (A13), a streamed wheel's checkpoint
-    and resume (A14) and streamed serve tenants (A15) refuse, naming
-    their items."""
+def test_cli_refuses_what_streaming_still_lacks(argv, item, tmp_path,
+                                                capsys):
+    """A streamed wheel's checkpoint and resume (A14) and streamed serve
+    tenants (A15) refuse, naming their items. Streaming's telemetry and
+    its analyze section (A13) are ported: that case runs the command
+    line and reads the streaming section and the records' ``stream.*``
+    counter deltas back."""
     from mpisppy_tpu_torch.__main__ import main
+    if item == "A13":
+        tdir = str(tmp_path / "t")
+        argv = [tdir if a == "t" else a for a in argv]
+        # a streamed source needs one shared A, which farmer's batch
+        # lacks: the same flags on UC 3 x 6
+        argv = ["uc", "--model-kwargs", json.dumps(UC_KW)] + argv[1:]
+        assert main(argv + ["--num-scens", "4", "--max-iterations", "3",
+                            "--convthresh", "-1", "--default-rho", "50",
+                            "--subproblem-max-iter", "1500"]) == 0
+        capsys.readouterr()
+        assert main(["analyze", tdir, "--json"]) == 0
+        rep = json.loads(capsys.readouterr().out)
+        assert rep["streaming"]["source"] == "streamed"
+        assert all(i["ok"] for i in rep["invariants"]
+                   if i["severity"] == "fail")
+        with open(f"{tdir}/events.jsonl") as fh:
+            recs = [e for e in map(json.loads, fh)
+                    if e["type"] == "ph.iteration"]
+        assert recs and all(
+            r["counter_deltas"].get("stream.chunks_shipped", 0) > 0
+            for r in recs)
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         main(argv)

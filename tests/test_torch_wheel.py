@@ -210,11 +210,61 @@ def test_cli_aph_hub(capsys, monkeypatch):
     (["analyze", "t"], "A13"),
     (["serve"], "A15"),
 ])
-def test_cli_refuses_what_is_not_ported(argv, item):
+def test_cli_refuses_what_is_not_ported(argv, item, tmp_path, capsys,
+                                        one_torch_thread):
+    """What is not ported refuses, naming its item. The telemetry files,
+    the live plane and ``analyze`` (A13) are ported: those cases run the
+    same command line (with a short run and a fresh directory for
+    ``t``) and check what it writes."""
+    if item == "A13":
+        _run_a13_case(argv, tmp_path, capsys)
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         main(argv + ["--device", "cpu"] if argv[0] not in ("analyze",
                                                              "serve")
              else argv)
+
+
+_SHORT_RUN = ["--num-scens", "3", "--default-rho", "10",
+              "--max-iterations", "3", "--convthresh", "-1",
+              "--subproblem-max-iter", "2000", "--device", "cpu"]
+
+
+def _run_a13_case(argv, tmp_path, capsys):
+    import json
+    import os
+    tdir = str(tmp_path / "t")
+    argv = [tdir if a == "t" else a for a in argv]
+    if argv[0] == "analyze":
+        # a run to read: the farmer CLI's files, then the report
+        assert main(["farmer", "--telemetry-dir", tdir] + _SHORT_RUN) == 0
+        capsys.readouterr()
+        assert main(argv) == 0
+        report = capsys.readouterr().out
+        assert "== invariant checks ==" in report
+        assert "[FAIL]" not in report
+        return
+    if "--scenario-source" in argv:
+        # a streamed source needs one shared A, which farmer's batch
+        # lacks: the same flags on UC 3 x 6
+        argv = ["uc", "--model-kwargs", json.dumps(_UC_KW)] + argv[1:]
+    assert main(argv + _SHORT_RUN) == 0
+    result = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert result["outer_bound"] is not None
+    if "--telemetry-dir" not in argv:
+        return
+    for f in ("events.jsonl", "trace.json", "metrics.json", "live.json"):
+        assert os.path.exists(os.path.join(tdir, f)), f
+    with open(os.path.join(tdir, "events.jsonl")) as fh:
+        events = [json.loads(line) for line in fh]
+    assert events[0]["type"] == "run_header" and events[0]["schema"] == 2
+    assert events[-1]["type"] == "run_footer"
+    recs = [e for e in events if e["type"] == "ph.iteration"]
+    assert [r["iter"] for r in recs] == [1, 2, 3]
+    assert all("phase_seconds" in r and "counter_deltas" in r
+               for r in recs)
+    if "--scenario-source" in argv:
+        assert all("stream" in r for r in recs)
 
 
 # what the refusals above named before the EF, L-shaped and FWPH
@@ -421,11 +471,28 @@ def test_base_receive_does_not_consume_cut_windows():
 
 
 def test_hub_refuses_unported_options():
+    """Checkpoints (A14) refuse; ``status_port`` (A13, ported) starts
+    the hub's status server, which answers /healthz and releases its
+    port on shutdown_live."""
+    import json
+    import urllib.request
     opt = PH(_farmer(), _opts(), device="cpu")
-    for key, item in (("status_port", "A13"), ("checkpoint_dir", "A14"),
-                      ("resume_from", "A14")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-            PHHub(opt, options={key: 0 if key == "status_port" else "d"})
+    for key in ("checkpoint_dir", "resume_from"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md A14"):
+            PHHub(opt, options={key: "d"})
+    hub = PHHub(opt, options={"status_port": 0})
+    try:
+        port = hub._status_server.port
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                    timeout=10) as r:
+            assert r.status == 200
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/status",
+                                    timeout=10) as r:
+            snap = json.loads(r.read())
+        assert snap["type"] == "live" and snap["hub"] == "PHHub"
+    finally:
+        hub.shutdown_live()
+    assert hub._status_server is None
     with pytest.raises(NotImplementedError, match="ROADMAP.md A14"):
         LagrangianOuterBound(PHBase(_farmer(), _opts(), device="cpu"),
                              options={"checkpoint_dir": "d"})

@@ -327,3 +327,47 @@ def stream_run(mesh, spec):
     ph.close_stream()
     return {"result": out, "xbar": _whole(ph, ph.xbar),
             "W": _whole(ph, ph.W)}
+
+
+def forensic_samples(mesh, spec):
+    """Three forensic samples (ops/forensics.forensic_reduce) over
+    seeded global (S, K) inputs, each rank on its rows: the packed
+    vectors every rank holds, as host arrays."""
+    torch.set_num_threads(1)
+    from mpisppy_tpu_torch.ops import forensics
+    rng = np.random.default_rng(spec["seed"])
+    S, K, S_real = spec["S"], spec["K"], spec["S_real"]
+    prob = np.zeros(S)
+    prob[:S_real] = rng.dirichlet(np.ones(S_real))
+    rho = rng.uniform(0.5, 2.0, size=(S, K))
+    world = 1 if mesh is None else mesh.size
+    lo, hi = (0, S) if mesh is None else mesh.row_range(S)
+    t = lambda a: torch.tensor(a[lo:hi])  # noqa: E731
+    st = forensics.init_state(hi - lo, K, dtype=torch.float64)
+    kk, ks = min(forensics.TOPK, K), min(forensics.TOPK, S_real)
+    out = []
+    for _ in range(3):
+        xn = rng.normal(size=(S, K))
+        xbar = np.broadcast_to(prob @ xn, (S, K))
+        w = rng.normal(size=(S, K))
+        st, packed = forensics.forensic_reduce(
+            st, t(xn), t(xbar), t(w), t(prob), t(rho), kk=kk, ks=ks,
+            mesh=mesh if world > 1 else None, row_offset=lo)
+        out.append(packed.numpy())
+    return out
+
+
+def ph_forensics(mesh, spec):
+    """PH on ``spec`` with telemetry on and a forensic sample every
+    iteration: the ``forensics`` blocks of the ph.iteration records."""
+    torch.set_num_threads(1)
+    from mpisppy_tpu_torch import obs
+    from mpisppy_tpu_torch.core.ph import PH
+    batch = build(spec["model"], spec.get("S"), spec.get("uc_kw"))
+    obs.configure()
+    try:
+        PH(batch, dict(spec["opts"], forensics_interval=1), device="cpu",
+           mesh=mesh).ph_main()
+        return [e["forensics"] for _, e in obs.events("ph.iteration")]
+    finally:
+        obs.shutdown()
