@@ -62,7 +62,22 @@
    demotion, iter-0 feasibility, finite bounds with outer <= inner and
    outer >= the trivial bound, and holds the block against its plain
    version at full width from the Lagrangian engine's prox-off W-on
-   state;
+   state; the wheel writes checkpoint bundles (``checkpoint_dir``);
+22. resumes that wheel (``ckpt_path``, cell uc-ref-S10-wheel-resume):
+   a fresh wheel of the same configuration on phase 10's batch with
+   ``resume_from`` phase 10's checkpoint directory, and a hub fault
+   plan (mpisppy_tpu_torch/testing/faults.py) whose ``preempt`` sends
+   the process a real SIGTERM at the resumed hub's first prox-on
+   iteration; checks that the installed (W, x̄, x̄², ρ) are bit-equal
+   to phase 10's final hub state and ``_iter`` to its count, that the
+   seeded best-bound ledger starts at phase 10's best bounds and never
+   loosens, that both resumed spokes booked ``ckpt.spoke_resumed``, that
+   the SIGTERM left a ``preempt`` bundle that ``LATEST`` named and no
+   spoke thread, that the hub's and the Lagrangian spoke's engines
+   launched the block with no demotion, and holds the block against its
+   plain version on the resumed hub's prox-on operands; prints the
+   capture and install milliseconds, the bundle's bytes and the
+   resumed wheel's seconds;
 11. spins the wheel that ``python -m mpisppy_tpu_torch uc --hub aph
    --dispatch-frac 0.25 --subproblem-chunk 16 --with-xhatshuffle``
    builds (``aph_path``: the RunConfig through utils/vanilla's hub and
@@ -185,9 +200,9 @@
    under its role and its merged trace must have one track per process
    (``telemetry_shards``);
 then prints one {"kernels": [...]} line whose launches count phases 3,
-5, 10, 11, 12, 13, 15, 16, 17, 19 (every rank's) and 20 and whose
+5, 10, 11, 12, 13, 15, 16, 17, 19 (every rank's), 20 and 22 and whose
 max_abs_err is the largest of phases 4, 5, 10, 11, 12, 13, 15, 16, 17,
-19 and 20.
+19, 20 and 22.
 The last line is {"ok": true, "device": {...}}; any failed check raises.
 """
 
@@ -241,16 +256,23 @@ SCALING_ROWS = (16, 48, 128)
 # enters the block), no padding to 128 rows (a TPU program-shape
 # device), a wheel deadline of WHEEL_DEADLINE seconds, and WHEEL_ITERS
 # hub iterations where the bench runs 25 (a cut in depth for the
-# script's time: 25 took about 136 s on an H100 80GB HBM3 at 700 W).
+# script's time: 25 took about 136 s on an H100 80GB HBM3 at 700 W;
+# 3 until phase 22's resumed wheel ran the third).
 # The x̂ spoke's first oracle round (three host MILPs and the exact
 # evaluation of one candidate) lands within the hub's iter 0 and the
 # Lagrangian spoke's first bound within the first hub iterations, so
 # the deadline is a guard that the hub's iteration limit normally beats
-WHEEL_ITERS = 3
+WHEEL_ITERS = 2
 WHEEL_DEADLINE = 300.0
 WHEEL_REL_GAP = 0.004
 WHEEL_GAP_MARKS = (0.01, 0.005)
 # the bench's oracle candidate recipe (bench.py _XHAT_ORACLE)
+# the resumed wheel (phase 22): phase 10's configuration resumed from
+# its checkpoint directory; the hub fault plan preempts it (a real
+# SIGTERM) at its first prox-on iteration, under an iteration limit
+# one above, so only the preemption can stop it there
+CKPT_FAULT_PLAN = {"hub": [{"action": "preempt", "at_iteration": 1}]}
+CKPT_ITERS = 2
 XHAT_ORACLE = {"xhat_oracle_candidates": True,
                "xhat_dive_candidates": False,
                "xhat_device_prescreen": False,
@@ -1691,9 +1713,10 @@ def wheel_path(dev):
     import tempfile
     cfg = wheel_config(dev)
     # phase 21 rides this wheel: the live plane on an ephemeral port
-    # and a telemetry directory
+    # and a telemetry directory; phase 22 resumes it from its bundles
     cfg.status_port = 0
     tdir = tempfile.mkdtemp(prefix="telemetry_wheel_")
+    cfg.checkpoint_dir = tempfile.mkdtemp(prefix="ckpt_wheel_")
     t0 = time.perf_counter()
     hub_d, spoke_ds = wheel_dicts(cfg)
     t_batch = time.perf_counter() - t0
@@ -1716,6 +1739,7 @@ def wheel_path(dev):
     launches = admm_block.LAUNCHES
     demotions = obs.events("kernel.cuda_demotion")
     spoke_bounds = obs.events("spoke.bound")
+    captures = obs.events("ckpt.capture")
     obs.shutdown()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
     hub = wheel.hub
@@ -1795,8 +1819,22 @@ def wheel_path(dev):
     batch = ph.batch
     best_xhat = (None if wheel.spokes[1].best_xhat is None
                  else np.array(wheel.spokes[1].best_xhat, dtype=float))
+    from mpisppy_tpu_torch.utils.runtime import to_host
     summary = {"inner": inner, "trivial_bound": trivial,
-               "hub_s_per_iteration": [r["seconds"] for r in rows]}
+               "hub_s_per_iteration": [r["seconds"] for r in rows],
+               # what phase 22 resumes and holds its install against
+               "ckpt": {"dir": cfg.checkpoint_dir, "iter": ph._iter,
+                        "outer": outer, "inner": inner,
+                        "plans": {str(k): p.descriptor() for k, p in
+                                  ph._kernel_plans.items()},
+                        "bundle": hub.ckpt.last_bundle,
+                        "capture_ms": [1e3 * e["seconds"]
+                                       for _, e in captures],
+                        "capture_reasons": [e["reason"]
+                                            for _, e in captures],
+                        "state": {k: to_host(getattr(ph, k))
+                                  for k in ("W", "xbar", "xsqbar",
+                                            "rho")}}}
     del wheel, hub, ph, lag, xhat, factors, data, st, q
     # phase 13 reuses the host batch; its device copies go now
     batch.__dict__.pop("_dev_cache", None)
@@ -1804,6 +1842,190 @@ def wheel_path(dev):
     if on_card:
         torch.cuda.empty_cache()
     return launches, err, failures, batch, best_xhat, summary
+
+
+def ckpt_path(dev, batch, phase10):
+    """Phase 22 (uc-ref-S10-wheel-resume): phase 10's wheel resumed from
+    its checkpoint directory on its batch, preempted by a real SIGTERM
+    at its first prox-on iteration. Returns (block launches of the
+    resumed wheel, the block's largest difference from its plain
+    version on the resumed hub's prox-on operands, the failed checks);
+    prints one JSON line."""
+    import math
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from mpisppy_tpu_torch import obs
+    from mpisppy_tpu_torch.ckpt import bundle as ckpt_bundle
+    from mpisppy_tpu_torch.core.ph import _ph_assemble
+    from mpisppy_tpu_torch.ops.kernels import admm_block
+    from mpisppy_tpu_torch.testing.faults import install_hub_faults
+    from mpisppy_tpu_torch.utils.runtime import to_host
+    from mpisppy_tpu_torch.utils.sputils import spin_the_wheel
+    from mpisppy_tpu_torch.utils.vanilla import wheel_dicts
+
+    src = phase10["ckpt"]
+    cfg = wheel_config(dev)
+    cfg.algo.max_iterations = CKPT_ITERS
+    cfg.hub_options["PHIterLimit"] = CKPT_ITERS
+    cfg.resume_from = src["dir"]
+    # a directory of its own: the resumed engine counts its iterations
+    # from 0 again (as the JAX package's does), so its bundles would
+    # sort below phase 10's under one retention
+    cfg.checkpoint_dir = tempfile.mkdtemp(prefix="ckpt_resume_")
+    failures = []
+    manifest, _, spoke_files = ckpt_bundle.load_bundle(src["dir"])
+    bundle_bytes = sum(int(v) for v in manifest["files"].values())
+    if manifest["reason"] != "finalize" \
+            or os.path.basename(ckpt_bundle.latest_bundle(src["dir"])) \
+            != os.path.basename(src["bundle"]):
+        failures.append(f"phase 10's LATEST bundle is {manifest['reason']!r}"
+                        f", not its final one {src['bundle']}")
+    if sorted(spoke_files) != ["spoke0.npz", "spoke1.npz"]:
+        failures.append(f"phase 10's bundle holds spoke files "
+                        f"{sorted(spoke_files)}")
+    hub_d, spoke_ds = wheel_dicts(cfg, batch=batch)
+    it_log = IterLog()
+    hub_d["opt_kwargs"]["extensions"] = it_log
+    installed, at_preempt = {}, {}
+
+    def arm(hub):
+        """After the hub (and the resume) is built, before its loop: read
+        the installed state, arm the fault plan, and note what LATEST
+        names once the preemption's capture has returned."""
+        # the engines built and the bundle installed, from the spin
+        installed["built_s"] = time.perf_counter() - t0
+        installed.update({k: to_host(getattr(hub.opt, k))
+                          for k in ("W", "xbar", "xsqbar", "rho")})
+        installed["iter"] = hub.opt._iter
+        installed["outer"] = hub.BestOuterBound
+        installed["inner"] = hub.BestInnerBound
+        install_hub_faults(hub, CKPT_FAULT_PLAN)
+        orig = hub.handle_preemption
+
+        def preempted(source="sigterm"):
+            orig(source)
+            latest = ckpt_bundle.latest_bundle(cfg.checkpoint_dir)
+            at_preempt.update(
+                source=source, iter=hub.opt._iter, latest=latest,
+                t_s=time.perf_counter() - t0,
+                reason=json.load(open(os.path.join(
+                    latest, ckpt_bundle.MANIFEST)))["reason"]
+                if latest else None)
+        hub.handle_preemption = preempted
+
+    obs.configure(out_dir=None)
+    admm_block.LAUNCHES = 0
+    t0 = time.perf_counter()
+    wheel = spin_the_wheel(hub_d, spoke_ds, register_hub=arm)
+    _sync()
+    t_wheel = time.perf_counter() - t0
+    launches = admm_block.LAUNCHES
+    demotions = obs.events("kernel.cuda_demotion")
+    resumes = obs.events("ckpt.resume")
+    rejected = obs.events("ckpt.resume_rejected")
+    counters = obs.counters_snapshot()
+    obs.shutdown()
+    hub = wheel.hub
+    ph, lag = hub.opt, wheel.spokes[0].opt
+    failures += stuck_spokes("ckpt_path")
+    if rejected or len(resumes) != 1:
+        failures.append(f"resume not installed: {len(resumes)} resumes, "
+                        f"rejections {[e for _, e in rejected]}")
+    for k, ref in src["state"].items():
+        got = installed.get(k)
+        if got is None or got.dtype != ref.dtype \
+                or not np.array_equal(got, ref):
+            failures.append(f"installed {k} is not bit-equal to phase "
+                            f"10's final hub state")
+    if installed.get("iter") != src["iter"]:
+        failures.append(f"installed _iter {installed.get('iter')} != phase "
+                        f"10's {src['iter']}")
+    if installed.get("outer") != src["outer"] \
+            or installed.get("inner") != src["inner"]:
+        failures.append(f"seeded ledger ({installed.get('outer')}, "
+                        f"{installed.get('inner')}) is not phase 10's best "
+                        f"({src['outer']}, {src['inner']})")
+    outs = [v for _, k, _, v in hub.bound_events if k == "outer"]
+    inns = [v for _, k, _, v in hub.bound_events if k == "inner"]
+    if outs != sorted(outs) or inns != sorted(inns, reverse=True) \
+            or not hub.BestOuterBound >= src["outer"] \
+            or not hub.BestInnerBound <= src["inner"]:
+        failures.append(f"ledger not monotone across the resume: outer "
+                        f"{outs}, inner {inns}")
+    if counters.get("ckpt.spoke_resumed", 0) != len(spoke_ds):
+        failures.append(f"ckpt.spoke_resumed = "
+                        f"{counters.get('ckpt.spoke_resumed', 0)}, "
+                        f"expected {len(spoke_ds)}")
+    if not hub._preempted or at_preempt.get("reason") != "preempt" \
+            or at_preempt.get("iter") != 1:
+        failures.append(f"no preempt bundle named by LATEST at the "
+                        f"resumed iteration 1: {at_preempt}")
+    elif not os.path.isfile(os.path.join(at_preempt["latest"],
+                                         ckpt_bundle.MANIFEST)):
+        failures.append(f"the preempt bundle {at_preempt['latest']} is "
+                        f"gone after the wheel")
+    per_engine = {"hub": ph.kernel_launches, "lagrangian":
+                  lag.kernel_launches, "xhatshuffle":
+                  wheel.spokes[1].opt.kernel_launches}
+    # the warm iteration 0 and the prox-on solve, each one block call
+    per_solve = admm_block.admm_block_launches(SLICE_BUDGET, False)
+    if per_engine["hub"] < 2 * per_solve:
+        failures.append(f"the resumed hub launched {per_engine['hub']} "
+                        f"kernels, under its two solves' {2 * per_solve}")
+    if per_engine["lagrangian"] <= 0:
+        failures.append("the resumed lagrangian engine launched no block")
+    plans = {str(k): p.descriptor() for k, p in ph._kernel_plans.items()}
+    moved = {k: (src["plans"][k], v) for k, v in plans.items()
+             if k in src["plans"] and src["plans"][k] != v}
+    if moved or not set(src["plans"]) & set(plans):
+        failures.append(f"the resume changed the block's plan: {moved} "
+                        f"(phase 10 {src['plans']}, resumed {plans})")
+    if demotions:
+        failures.append(f"kernel demotion booked: {demotions}")
+    if any(p.backend != "cuda" for p in ph._kernel_plans.values()):
+        failures.append("a kernel plan of the resumed hub is not cuda")
+    outer, inner = hub.BestOuterBound, hub.BestInnerBound
+    if not (math.isfinite(outer) and math.isfinite(inner)
+            and outer <= inner):
+        failures.append(f"resumed bounds: outer {outer}, inner {inner}")
+    factors, data = ph._get_factors(True)
+    st = ph._qp_states[True]
+    q, _, _ = _ph_assemble(data, ph.c, ph.W, ph.xbar, ph.rho,
+                           ph.nonant_idx, ph._fixed_mask, ph._fixed_vals,
+                           ph._w_scale, w_on=True, prox_on=True)
+    err, f = compare(factors, data, q, st, 20, "ckpt_resumed_prox_on")
+    failures += f
+    admm_block.LAUNCHES = launches   # the comparison's are not the path's
+    log(json.dumps({
+        "phase": "ckpt_path", "cell": "uc-ref-S10-wheel-resume",
+        "S": ph.batch.S, "n": ph.batch.n, "m": ph.batch.m,
+        "capture_ms_phase10": src["capture_ms"],
+        "capture_reasons_phase10": src["capture_reasons"],
+        "install_ms": 1e3 * resumes[0][1]["seconds"] if resumes else None,
+        "bundle_bytes": bundle_bytes, "resumed_wheel_s": t_wheel,
+        "built_s": installed.get("built_s"),
+        "iter0_end_s": None if it_log.t is None else it_log.t - t0
+        - sum(r["seconds"] for r in it_log.rows),
+        "hub_s_per_iteration": [r["seconds"] for r in it_log.rows],
+        "installed_iter": installed.get("iter"),
+        "preempt": at_preempt, "best_outer": outer, "best_inner": inner,
+        "bound_events": [[t - t0, k, c, v]
+                         for t, k, c, v in hub.bound_events],
+        "spoke_resumed": counters.get("ckpt.spoke_resumed", 0),
+        "captures": counters.get("ckpt.captures", 0), "plans": plans,
+        "schedule": admm_block.block_schedule(ph.batch.m, ph.batch.n),
+        "launches_per_engine": per_engine, "launches": launches,
+        "demotions": len(demotions)}))
+    del wheel, hub, ph, lag, factors, data, st, q
+    shutil.rmtree(cfg.checkpoint_dir, ignore_errors=True)
+    shutil.rmtree(src["dir"], ignore_errors=True)
+    batch.__dict__.pop("_dev_cache", None)
+    gc.collect()
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    return launches, err, failures
 
 
 class LivePoller:
@@ -4080,6 +4302,10 @@ def main():
     if failures:
         raise RuntimeError("wheel path failed: " + "; ".join(failures))
     mark("10_wheel_path")
+    ckpt_launches, ckpt_err, failures = ckpt_path(dev, slice_batch, phase10)
+    mark("22_ckpt_path")
+    if failures:
+        raise RuntimeError("ckpt path failed: " + "; ".join(failures))
     aph_launches, aph_err, failures = aph_path(dev, batch, native)
     mark("11_aph_path")
     if failures:
@@ -4128,12 +4354,13 @@ def main():
         raise RuntimeError("stream path failed: " + "; ".join(failures))
     launches += chunk_launches + wheel_launches + aph_launches \
         + shard_launches + ls_launches + fw_launches + bundle_launches \
-        + shrink_launches + mesh_launches + stream_launches
+        + shrink_launches + mesh_launches + stream_launches \
+        + ckpt_launches
     # the largest difference at any shape of the path
     timing["max_abs_err"] = max(timing["max_abs_err"], chunk_err,
                                 wheel_err, aph_err, shard_err, ls_err,
                                 fw_err, bundle_err, shrink_err, mesh_err,
-                                stream_err)
+                                stream_err, ckpt_err)
     entry = {"name": "admm_block", "route": "cuda",
              "source": "mpisppy_tpu_torch/ops/kernels/csrc/admm_block.cu",
              "replaces": "mpisppy_tpu/ops/kernels/pallas_kernel.py:100",

@@ -10,7 +10,9 @@ extensive form (core/ef.py; ``--EF-integer`` as a MIP) and prints
 ``--device`` picks the engines' device (default: the CUDA device; the
 run raises without one unless ``--device cpu`` is given). What the port
 does not run yet refuses, naming its ROADMAP.md item: the cross-scenario
-spoke, the ``serve`` subcommand and checkpoints.
+spoke and the ``serve`` subcommand. ``--checkpoint-dir D`` writes
+checkpoint bundles into D and ``--resume-from D`` resumes a wheel from
+the newest of them (ckpt/).
 
 ``--telemetry-dir D`` (or ``MPISPPY_TPU_TELEMETRY_DIR``) writes the run's
 events.jsonl, trace.json, metrics.json and live.json into D, and the
@@ -175,8 +177,7 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--EF", action="store_true", dest="solve_ef")
     p.add_argument("--EF-integer", action="store_true", dest="ef_integer")
     p.add_argument("--trace-prefix", type=str, default=None)
-    # telemetry files and the live plane (obs/); checkpoints are
-    # accepted by the parser, refused by the run (ROADMAP.md A14)
+    # telemetry files, the live plane (obs/) and checkpoints (ckpt/)
     p.add_argument("--telemetry-dir", type=str, default=None,
                    help="enable telemetry (mpisppy_tpu_torch.obs): "
                         "events.jsonl, trace.json, metrics.json and "
@@ -188,13 +189,25 @@ def make_parser() -> argparse.ArgumentParser:
                         "/healthz; 0 = an ephemeral port)")
     p.add_argument("--status-host", type=str, default="127.0.0.1")
     p.add_argument("--checkpoint-dir", type=str, default=None,
-                   help="run-state checkpoints (not ported: refuses, "
-                        "ROADMAP.md A14)")
-    p.add_argument("--checkpoint-interval", type=float, default=30.0)
-    p.add_argument("--checkpoint-keep", type=int, default=3)
+                   help="durable run-state checkpoints: the hub "
+                        "captures manifest'd bundles (W, x̄, ρ, "
+                        "bounds, per-spoke warm state) here — "
+                        "periodic, plus forced on watchdog fire and "
+                        "SIGTERM (the preemption notice). See "
+                        "doc/fault_tolerance.md")
+    p.add_argument("--checkpoint-interval", type=float, default=30.0,
+                   help="seconds between periodic checkpoint bundles "
+                        "(default 30)")
+    p.add_argument("--checkpoint-keep", type=int, default=3,
+                   help="retain the newest N bundles (default 3); "
+                        "LATEST always points at the newest")
     p.add_argument("--resume-from", type=str, default=None,
-                   help="resume from a checkpoint (not ported: refuses, "
-                        "ROADMAP.md A14)")
+                   help="relaunch the wheel from a checkpoint bundle "
+                        "(or a --checkpoint-dir, resolved through its "
+                        "LATEST pointer): hub state + best-bound "
+                        "ledger + spoke warm state restored; a "
+                        "corrupt or config-mismatched bundle falls "
+                        "back to cold start with a reasoned event")
     p.add_argument("--wheel-deadline", type=float, default=None,
                    help="watchdog: cleanly terminate the wheel after "
                         "this many seconds (kill signal to spokes, "

@@ -534,6 +534,10 @@ def spin_aph_shard_wheel(cfg, n_shards: int, join_timeout=600.0,
     refuse_unported(cfg)
     if mesh_ranks(cfg, warn=False) > 1:
         raise _not_ported("a scenario mesh in the process wheels", "A8b")
+    if cfg.checkpoint_dir or cfg.resume_from:
+        # the JAX package's shard wheel takes no checkpoint either;
+        # refuse rather than run without one
+        raise _not_ported("checkpoints of the sharded APH wheel", "A8b")
     if cfg.algo.scenario_source != "resident":
         raise _not_ported("a streamed or synthesized scenario source in "
                           "the process wheels", "A8b")

@@ -11,9 +11,9 @@ The port's copy of the JAX package's cylinders/hub.py: engine state is
 read through ``utils.runtime.to_host`` (it may live on the card). The
 live status plane runs as in the JAX package (``status_port``: /status,
 /metrics and /healthz; live.json beside the telemetry artifacts on
-every termination check; obs/live.py). Checkpoints (``checkpoint_dir``,
-``resume_from``) raise, naming ROADMAP.md A14, since their module is
-not ported yet.
+every termination check; obs/live.py). Checkpoints run as in the JAX
+package (``checkpoint_dir``, ``resume_from``; ckpt/), except beside a
+hub engine sharded over ranks, where they raise (ROADMAP.md A8b).
 """
 
 from __future__ import annotations
@@ -33,6 +33,14 @@ from .spoke import ConvergerSpokeType
 class Hub(SPCommunicator):
     def __init__(self, spbase_object, spokes=None, options=None):
         super().__init__(spbase_object, options)
+        if (self.options.get("checkpoint_dir")
+                or self.options.get("resume_from")) \
+                and getattr(self.opt, "shard_mesh", None) is not None:
+            # capture and install would be collectives that rank 0's
+            # hub cannot run alone while the followers iterate
+            raise NotImplementedError(
+                "checkpoints of a hub engine sharded over ranks are not "
+                "ported yet (see ROADMAP.md A8b)")
         self.spokes = list(spokes or [])
         # best bounds for a MIN problem: outer = lower, inner = upper/incumbent
         self.BestOuterBound = -math.inf
@@ -99,13 +107,6 @@ class Hub(SPCommunicator):
         # and 500 the scrape.
         self._flow_lock = threading.Lock()
         self._spoke_flow = [self._new_flow() for _ in self.spokes]
-        # durable checkpoints (the JAX package's ckpt/) are not ported:
-        # asking for them raises instead of running without them
-        for opt in ("checkpoint_dir", "resume_from"):
-            if self.options.get(opt) is not None:
-                raise NotImplementedError(
-                    f"hub option {opt!r} is not ported yet (see "
-                    f"ROADMAP.md A14)")
         # in-run status server (obs/live.py), owned by the hub process:
         # opt-in via the "status_port" option (RunConfig.status_port /
         # --status-port; 0 = ephemeral port)
@@ -123,9 +124,31 @@ class Hub(SPCommunicator):
         self._live_last_write = 0.0
         self._live_min_interval = float(
             self.options.get("live_snapshot_interval", 0.25))
+        # ---- durable run-state checkpoints (ckpt/) ----
+        # "checkpoint_dir" arms the hub-owned CheckpointManager:
+        # periodic bundles from the termination-check path, forced
+        # bundles on watchdog fire / preemption (SIGTERM) / finalize.
+        # "resume_from" installs a validated bundle into the engine +
+        # the best-bound ledger BEFORE the first iteration; a corrupt
+        # or mismatched bundle is rejected with a reasoned event and
+        # the wheel cold-starts (doc/fault_tolerance.md).
         self.ckpt = None
+        ckpt_dir = self.options.get("checkpoint_dir")
+        resume_from = self.options.get("resume_from")
+        if ckpt_dir:
+            from ..ckpt.manager import CheckpointManager
+            self.ckpt = CheckpointManager(
+                self, ckpt_dir,
+                interval=self.options.get("checkpoint_interval"),
+                keep=self.options.get("checkpoint_keep"),
+                fingerprint=self.options.get("checkpoint_fingerprint"))
         self._preempted = False
         self._preempt_lock = threading.Lock()
+        if resume_from:
+            from ..ckpt.manager import resume_hub
+            resume_hub(self, resume_from,
+                       fingerprint=self.options.get(
+                           "checkpoint_fingerprint"))
 
     @staticmethod
     def _new_flow():
@@ -523,9 +546,11 @@ class Hub(SPCommunicator):
                 "ib_char": self.latest_ib_char,
                 "watchdog_fired": self._watchdog_fired,
                 "preempted": self._preempted,
-                # last-checkpoint stamp: checkpoints are not ported
-                # (ROADMAP.md A14), so always None
-                "checkpoint": None,
+                # last-checkpoint stamp (None fields until the first
+                # capture) — the live plane's answer to "would a
+                # preemption right now lose anything?"
+                "checkpoint": self.ckpt.status()
+                if self.ckpt is not None else None,
                 "spokes": spokes}
         try:
             pt = self.opt.phase_timing(True) \
@@ -593,6 +618,8 @@ class Hub(SPCommunicator):
         # a watchdog kill is a premature end: capture the state it
         # would otherwise lose (forced — the interval must not skip
         # the last chance)
+        if self.ckpt is not None:
+            self.ckpt.maybe_capture(force=True, reason="watchdog")
         self._write_live_snapshot(force=True)
         # nonblocking: the timer thread may interrupt a frame holding a
         # sink lock (the same contract as bench's signal-handler flush)
@@ -620,6 +647,8 @@ class Hub(SPCommunicator):
                    "inner": fin(self.BestInnerBound)})
         global_toc(f"WARNING: preemption notice ({source}); "
                    "checkpointing and terminating")
+        if self.ckpt is not None:
+            self.ckpt.maybe_capture(force=True, reason="preempt")
         # NOTE: a streamed engine's prefetch thread is NOT closed here
         # — the signal frame interrupts the hub loop mid-iteration and
         # the in-flight chunk pass still consumes staged blocks; the
@@ -662,6 +691,12 @@ class Hub(SPCommunicator):
             return True
         if self._wheel_deadline_exceeded():
             return True
+        # periodic durable checkpoint (rate-limited inside the
+        # manager, like the live.json throttle) — the hub's
+        # termination check is the one place every hub family passes
+        # through between iterations
+        if self.ckpt is not None:
+            self.ckpt.maybe_capture()
         abs_gap, rel_gap = self.compute_gaps()
         if obs.enabled():
             # the hub half of the per-iteration convergence record
@@ -748,6 +783,8 @@ class Hub(SPCommunicator):
         # one last durable bundle so a relaunch resumes from the FINAL
         # state (also covers watchdog/preempt wheels whose forced
         # capture preceded the last spoke bounds)
+        if self.ckpt is not None:
+            self.ckpt.maybe_capture(force=True, reason="finalize")
         abs_gap, rel_gap = self.compute_gaps()
         global_toc(f"Final bounds: outer {self.BestOuterBound:.4f} / inner "
                    f"{self.BestInnerBound:.4f}, rel gap "

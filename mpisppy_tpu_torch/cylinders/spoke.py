@@ -64,16 +64,25 @@ class Spoke(SPCommunicator):
         # publish (same seq, same stamps — only the write-id advances)
         self._publish_seq = 0
         self._last_wire = None
-        # ---- durable warm state: the JAX package keeps a spoke
-        # state file fresh for checkpoints and resumes from one; the
-        # checkpoint layer is not ported (ROADMAP.md A14), so asking
-        # for it raises instead of running without it
-        for opt in ("checkpoint_dir", "resume_state"):
-            if self.options.get(opt):
-                raise NotImplementedError(
-                    f"spoke option {opt!r}: checkpoints and resumes are "
-                    "not ported yet (see ROADMAP.md A14)")
+        # ---- durable warm state (ckpt/, doc/fault_tolerance.md):
+        # with "checkpoint_dir" set, this spoke keeps a
+        # tiny atomic state file fresh (best bound, incumbent, duals,
+        # cycler position — whatever spoke_state() reports) so the
+        # hub's bundles stay self-contained and a respawned
+        # incarnation resumes instead of restarting. "resume_state"
+        # names the file THIS incarnation starts from; a corrupt file
+        # cold-starts with a reasoned counter, never a crashed child.
+        self._ckpt_dir = self.options.get("checkpoint_dir")
+        self._ckpt_index = int(self.options.get("checkpoint_index", 0))
+        self._ckpt_kind = str(self.options.get("checkpoint_kind", "?"))
+        self._ckpt_min_interval = float(self.options.get(
+            "spoke_checkpoint_interval", 2.0))
+        self._ckpt_last_write = 0.0
         self._resume_bound = None
+        # loaded lazily by resume_publish(): install_spoke_state
+        # touches subclass attributes that do not exist yet this early
+        # in the ctor chain
+        self._resume_state_path = self.options.get("resume_state")
 
     # -- wire protocol (ref. spoke.py:59-99) --
     def spoke_to_hub(self, values, t_compute=None):
@@ -110,13 +119,14 @@ class Spoke(SPCommunicator):
             time.sleep(self._sleep_time)
         self._last_kill_check = time.monotonic()
         self._heartbeat()
+        self.maybe_write_spoke_state()
         return self.killed()
 
     def _heartbeat(self):
         """No-op by default; _BoundSpoke re-stamps its window when idle
         (the write-id doubles as the heartbeat — no extra channel)."""
 
-    # ---- warm state (the checkpoint layer's view of a spoke) ----
+    # ---- warm state (ckpt/) ----
     def spoke_state(self) -> dict:
         """This spoke's resumable warm state as plain host values
         (arrays/scalars/strings). Subclasses EXTEND the dict — the
@@ -134,15 +144,70 @@ class Spoke(SPCommunicator):
             self.bound = float(b)
             self._resume_bound = float(b)
 
+    def _load_resume_state(self, path):
+        from .. import global_toc, obs
+        from ..ckpt.bundle import CheckpointError
+        from ..ckpt.spoke_state import load_spoke_state
+        try:
+            state = load_spoke_state(path,
+                                     spoke_class=type(self).__name__)
+        except CheckpointError as e:
+            obs.counter_add(f"ckpt.rejected.{e.reason}")
+            obs.event("ckpt.resume_rejected",
+                      {"reason": e.reason, "detail": str(e),
+                       "spoke": self._ckpt_index})
+            global_toc(f"{type(self).__name__}: spoke resume state "
+                       f"rejected ({e.reason}); cold start")
+            return
+        self.install_spoke_state(state)
+        obs.counter_add("ckpt.spoke_resumed")
+        obs.event("ckpt.spoke_resume",
+                  {"spoke": self._ckpt_index,
+                   "bound": obs.finite_or_none(self._resume_bound)})
+
     def resume_publish(self):
-        """Publish a bound installed by :meth:`install_spoke_state` as
-        this incarnation's first publish (called by the launcher before
-        main()). No-op without one."""
+        """Install the parked resume state (deferred from the ctor —
+        subclass attributes exist by now) and publish the checkpointed
+        best bound as this incarnation's FIRST publish (called by the
+        launchers after the hello, before main()): the value was a
+        valid bound when captured and the config fingerprint guards
+        the model, so re-publishing it is sound — and it makes a
+        respawned spoke's first bound no worse than its predecessor's
+        best. No-op without resume state."""
+        if self._resume_state_path:
+            path, self._resume_state_path = self._resume_state_path, None
+            self._load_resume_state(path)
         if self._resume_bound is None or self.my_window is None:
             return
         b, self._resume_bound = self._resume_bound, None
+        # _BoundSpoke publishes through update_bound; a spoke with a
+        # custom wire layout (the dual-typed EF-MIP bounder) keeps the
+        # installed self.bound and re-publishes through its own loop
         if hasattr(self, "update_bound"):
             self.update_bound(b)
+
+    def maybe_write_spoke_state(self, force=False):
+        """Throttled atomic refresh of this spoke's warm-state file;
+        cheap no-op without a checkpoint dir. Called from the bound
+        publish path and the kill-poll beat, so the state tracks the
+        spoke even between publishes (dive rounds, cycler walks). A
+        full disk books a counter and the spoke keeps running."""
+        if self._ckpt_dir is None:
+            return
+        now = time.monotonic()
+        if not force and now - self._ckpt_last_write \
+                < self._ckpt_min_interval:
+            return
+        self._ckpt_last_write = now
+        from .. import obs
+        from ..ckpt.spoke_state import save_spoke_state
+        try:
+            save_spoke_state(self._ckpt_dir, self._ckpt_index,
+                             type(self).__name__, self._ckpt_kind,
+                             self.spoke_state())
+            obs.counter_add("ckpt.spoke_writes")
+        except OSError:
+            obs.counter_add("ckpt.write_failed")
 
     def killed(self) -> bool:
         """Non-sleeping kill probe for use INSIDE long spoke work
@@ -272,6 +337,12 @@ class _BoundSpoke(Spoke):
         if self._trace_path:
             with open(self._trace_path, "a") as f:
                 f.write(f"{self._trace[-1][0]},{self.bound}\n")
+        # refresh the durable warm state BEFORE the wire write (forced,
+        # not throttled): a crash during or right after the publish
+        # must find the file already carrying this bound, or the
+        # respawned incarnation's first publish could regress below a
+        # value the wheel has seen
+        self.maybe_write_spoke_state(force=True)
         self.spoke_to_hub(np.array([self.bound]), t_compute=t_compute)
 
     def write_trace(self, path):

@@ -44,12 +44,11 @@ failure never changes which implementation runs.
 
 from __future__ import annotations
 
-import hashlib
-import json
 import os
 import threading
 import time
 
+from ..ckpt.bundle import config_fingerprint
 from . import active as _active
 from . import counter_add, event, gauge_set, span
 
@@ -66,14 +65,6 @@ _PEAKS_BY_KIND = (
     ("cpu", 1e11, 50.0),
 )
 _CPU_NOMINAL = (1e11, 50.0)
-
-
-def config_fingerprint(fields: dict) -> str:
-    """Stable 16-hex fingerprint of a JSON-able dict (the port's copy of
-    the JAX package's ckpt/bundle.config_fingerprint): one id per shape
-    bucket, so the same bucket carries the same id in both packages."""
-    canon = json.dumps(fields, sort_keys=True, default=str)
-    return hashlib.sha256(canon.encode("utf-8")).hexdigest()[:16]
 
 
 # ---------------- the analytic work models ----------------

@@ -23,9 +23,15 @@ into the run's telemetry directory under its own role
 (``events-spoke<i>-<kind>.jsonl``, ``trace-...``, ``metrics-...``), and
 the hub merges every process's trace into one ``trace_merged.json``
 with one track per process after the wheel ends (obs/merge.py). What
-the port does not run yet raises, naming its ROADMAP.md item
-(checkpoints and resumes: A14; the fault-injection plans of the JAX
-package's testing/faults wait for a later slice).
+the port does not run yet raises, naming its ROADMAP.md item.
+
+Checkpoints (ckpt/): with ``checkpoint_dir`` each spoke child keeps its
+warm-state file fresh and a respawned generation resumes from the one
+its predecessor wrote; ``resume_from`` resumes the hub and the spokes
+from a bundle; a SIGTERM to the hub process captures a final bundle and
+stops the wheel cleanly. Fault plans (testing/faults.py): a spoke's
+``fault_plan`` option or the ``MPISPPY_TPU_FAULT_PLAN`` environment
+variable arms the injectors, imported only when a plan is given.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from __future__ import annotations
 import multiprocessing as mp
 import os
 import secrets
+import signal
 import time
 
 from .. import global_toc, obs
@@ -128,11 +135,31 @@ def _spoke_worker(cfg_dict, spoke_cfg_dict, hub_name, my_name,
                                      create=False)
     spoke.my_window = Window.shared(my_name, spoke.local_window_length(),
                                     create=False)
+    # fault injection (testing/faults.py) is gated on an EXPLICIT plan
+    # (spoke option or env var): the import — and every wrapper it
+    # installs — exists only in faulted test children, never on the
+    # production path (the clean path imports nothing of testing/)
+    fault_spec = (spoke_cfg_dict.get("options") or {}).get("fault_plan") \
+        or os.environ.get("MPISPPY_TPU_FAULT_PLAN")
+    if fault_spec:
+        from ..testing.faults import FaultInjector
+        injector = FaultInjector.from_spec(
+            fault_spec,
+            index=(telemetry or {}).get("index", 0),
+            gen=(telemetry or {}).get("gen", 0))
+        injector.sleep_before_hello()
+        injector.install(spoke)
     # startup handshake: a NaN hello tells the hub this spoke is wired
     # and looping (ref. hub.py:285-308); NaN never wins a bound
     # comparison, so the hub consumes it harmlessly
     spoke.my_window.put(np.full(spoke.local_window_length(), np.nan))
     try:
+        # warm resume (ckpt/): a spoke handed a ``resume_state`` option
+        # re-publishes its checkpointed best bound as its FIRST publish
+        # — after the hello (the hub's readiness gate) and before
+        # main() recomputes anything, so a respawned incarnation's
+        # first bound is never worse than its predecessor's best
+        spoke.resume_publish()
         spoke.main()
         spoke.finalize()
     finally:
@@ -184,14 +211,28 @@ def _spawn_one_spoke(cfg: RunConfig, i, run_id, ctx, S, K, gen=0):
 
     sp = cfg.spokes[i]
     proxy = _spoke_proxy(sp.kind, run_id, i, S, K, create=True, gen=gen)
+    sp_dict = asdict(sp)
+    if cfg.checkpoint_dir or cfg.resume_from:
+        # checkpoint/resume wiring (ckpt/): where this incarnation
+        # WRITES its warm state, and — for respawns (gen > 0, the
+        # supervisor path) or a --resume-from launch — the state file
+        # it resumes FROM: generation N starts from the freshest state
+        # generation N-1 persisted
+        from ..ckpt.spoke_state import spoke_resume_options
+        for k, v in spoke_resume_options(
+                cfg.checkpoint_dir, cfg.resume_from, i, sp.kind,
+                gen=gen).items():
+            sp_dict["options"].setdefault(k, v)
     # each child captures into the shared run dir under its own role,
     # so artifacts never clobber; a respawned incarnation gets a
-    # gen-suffixed role so the dead child's events survive beside it
+    # gen-suffixed role so the dead child's events survive beside it.
+    # The index and generation key the child's fault plan.
     telemetry = {"out_dir": _telemetry_out_dir(cfg),
                  "role": f"spoke{i}-{sp.kind}" + (f"-r{gen}" if gen
-                                                  else "")}
+                                                  else ""),
+                 "index": i, "gen": gen}
     p = ctx.Process(target=_spoke_worker,
-                    args=(cfg.to_dict(), asdict(sp),
+                    args=(cfg.to_dict(), sp_dict,
                           *_spoke_window_names(run_id, i, gen), telemetry),
                     daemon=True)
     p.start()
@@ -284,6 +325,7 @@ def spin_the_wheel_processes(cfg: RunConfig, join_timeout=None,
     ctx = mp.get_context("spawn")
     procs, owned = [], []
     supervisor = None
+    prev_sigterm = None
     try:
         proxies, procs, owned = spawn_spoke_processes(cfg, run_id, ctx,
                                                       S, K)
@@ -303,6 +345,23 @@ def spin_the_wheel_processes(cfg: RunConfig, join_timeout=None,
         supervisor.attach(hub)
         if cfg.wheel_deadline:
             supervisor.start_watchdog(cfg.wheel_deadline)
+        # deterministic hub-side faults (testing/faults.py): the
+        # harness can preempt (SIGTERM) or crash the HUB process at a
+        # named iteration, the way spoke plans crash spokes. Imported
+        # only under the env var: the clean path imports nothing of
+        # testing/.
+        hub_fault_spec = os.environ.get("MPISPPY_TPU_FAULT_PLAN")
+        if hub_fault_spec:
+            from ..testing.faults import install_hub_faults
+            install_hub_faults(hub, hub_fault_spec)
+        # the preemption notice path (doc/fault_tolerance.md): with
+        # checkpointing armed, SIGTERM forces one final bundle +
+        # nonblocking telemetry flush + clean terminate instead of
+        # losing the whole optimization state. Handler restored on
+        # every exit path (outermost finally).
+        if cfg.checkpoint_dir:
+            from .sputils import install_preemption_handler
+            prev_sigterm = install_preemption_handler(hub)
         wait_spoke_hellos(cfg, proxies, procs, spoke_ready_timeout,
                           hub=hub)
         try:
@@ -336,5 +395,7 @@ def spin_the_wheel_processes(cfg: RunConfig, join_timeout=None,
             hub.shutdown_live()
         raise
     finally:
+        if prev_sigterm is not None:
+            signal.signal(signal.SIGTERM, prev_sigterm)
         for w in owned:
             w.close(unlink=True)

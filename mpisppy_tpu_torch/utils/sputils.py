@@ -17,6 +17,7 @@ identical, so cylinder asynchrony semantics carry over.
 
 from __future__ import annotations
 
+import signal
 import threading
 import time
 
@@ -118,6 +119,19 @@ def _check_dict(d, keys, what):
                                "(ref. sputils.py:36-60 dict validation)")
 
 
+def install_preemption_handler(hub):
+    """Route SIGTERM to ``hub.handle_preemption`` (a final checkpoint
+    bundle and a clean stop). Returns the handler it replaced, for the
+    caller to restore, or None off the main thread, where a handler
+    cannot be installed."""
+    def _on_sigterm(signum, frame):
+        hub.handle_preemption("sigterm")
+    try:
+        return signal.signal(signal.SIGTERM, _on_sigterm)
+    except ValueError:
+        return None
+
+
 def spin_the_wheel(hub_dict, list_of_spoke_dicts=(), spin_timeout=None,
                    register_hub=None):
     """Run one hub + N spokes concurrently; returns a WheelResult. With
@@ -190,14 +204,7 @@ def spin_the_wheel(hub_dict, list_of_spoke_dicts=(), spin_timeout=None,
     # Hub.handle_preemption. Handler restored on every exit path.
     prev_sigterm = None
     if hub.ckpt is not None:
-        import signal as _signal
-
-        def _on_sigterm(signum, frame):
-            hub.handle_preemption("sigterm")
-        try:
-            prev_sigterm = _signal.signal(_signal.SIGTERM, _on_sigterm)
-        except ValueError:
-            prev_sigterm = None         # not the main thread
+        prev_sigterm = install_preemption_handler(hub)
     try:
         hub.main()                      # ref. sputils.py:115 spcomm.main()
     except BaseException:
@@ -208,8 +215,7 @@ def spin_the_wheel(hub_dict, list_of_spoke_dicts=(), spin_timeout=None,
         raise
     finally:
         if prev_sigterm is not None:
-            import signal as _signal
-            _signal.signal(_signal.SIGTERM, prev_sigterm)
+            signal.signal(signal.SIGTERM, prev_sigterm)
         hub.send_terminate()            # ref. sputils.py:117 / hub.py:356
     # two-phase join: spokes poll the kill signal between candidate
     # evaluations / oracle tasks, but one in-flight batched solve or

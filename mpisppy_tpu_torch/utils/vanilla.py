@@ -6,9 +6,11 @@ validated RunConfig into the hub/spoke dict schema spin_the_wheel
 consumes, one factory per cylinder kind. Every cylinder gets its OWN
 engine over one shared host batch, on the run's ``device`` (None = the
 CUDA device). What the port does not run yet raises, naming its
-ROADMAP.md item: the cross-scenario spoke, the FWPH spoke beside a
-sharded hub and checkpoints (a streamed wheel's included). The live
-status plane (``status_port``) rides to the hub as in the JAX package.
+ROADMAP.md item: the cross-scenario spoke, and the FWPH spoke and
+checkpoints beside a sharded hub. The live status plane
+(``status_port``) and checkpoints (``checkpoint_dir``, ``resume_from``:
+the hub's options and each spoke's warm-state wiring) ride to the
+cylinders as in the JAX package.
 
 Scenario sources (``scenario_source``, mpisppy_tpu_torch/stream): a
 streamed or synthesized wheel is hub-only, as in the JAX package; a
@@ -51,8 +53,9 @@ def refuse_unported(cfg: RunConfig):
     if mesh_ranks(cfg, warn=False) > 1 \
             and any(sp.kind == "fwph" for sp in cfg.spokes):
         raise _not_ported("the FWPH spoke beside a sharded hub", "A8b")
-    if cfg.checkpoint_dir or cfg.resume_from:
-        raise _not_ported("checkpoints and resumes", "A14")
+    if mesh_ranks(cfg, warn=False) > 1 \
+            and (cfg.checkpoint_dir or cfg.resume_from):
+        raise _not_ported("checkpoints of a sharded hub engine", "A8b")
 
 
 def mesh_ranks(cfg: RunConfig, warn=True) -> int:
@@ -164,6 +167,20 @@ def build_batch_for(cfg: RunConfig):
     return batch
 
 
+def ckpt_fingerprint(cfg: RunConfig) -> str:
+    """The run-identity fingerprint stamped into checkpoint bundles
+    (ckpt/bundle.config_fingerprint): a bundle only resumes into a
+    wheel with the same model family, scenario count, model kwargs,
+    bundling, and hub algorithm — anything else would install
+    foreign (or shape-mismatched) state. The fields are the JAX
+    package's, so one configuration fingerprints the same in both."""
+    from ..ckpt.bundle import config_fingerprint
+    return config_fingerprint({
+        "model": cfg.model, "num_scens": cfg.num_scens,
+        "model_kwargs": cfg.model_kwargs,
+        "num_bundles": cfg.num_bundles, "hub": cfg.hub})
+
+
 def hub_dict(cfg: RunConfig, batch=None, mesh=None):
     """ref. vanilla.py:54 ph_hub / aph_hub / lshaped_hub. ``batch``:
     optionally a prebuilt batch shared across cylinders (engines never
@@ -193,6 +210,20 @@ def hub_dict(cfg: RunConfig, batch=None, mesh=None):
     if "crossed_bound_tol" in cfg.supervisor:
         hub_kwargs["options"]["crossed_bound_tol"] = \
             cfg.supervisor["crossed_bound_tol"]
+    if cfg.checkpoint_dir or cfg.resume_from:
+        # durable run-state checkpoints + resume (ckpt/): the hub owns
+        # capture; resume installs before iter 0. The fingerprint makes
+        # a bundle from a different configuration refuse cleanly at
+        # load.
+        if cfg.checkpoint_dir:
+            hub_kwargs["options"]["checkpoint_dir"] = cfg.checkpoint_dir
+            hub_kwargs["options"]["checkpoint_interval"] = \
+                cfg.checkpoint_interval
+            hub_kwargs["options"]["checkpoint_keep"] = cfg.checkpoint_keep
+        if cfg.resume_from:
+            hub_kwargs["options"]["resume_from"] = cfg.resume_from
+        hub_kwargs["options"]["checkpoint_fingerprint"] = \
+            ckpt_fingerprint(cfg)
     opt_kwargs = {"batch": batch if batch is not None
                   else build_batch_for(cfg),
                   "options": options, "device": cfg.device, **dtype_kw}
@@ -266,13 +297,15 @@ def spoke_dict(cfg: RunConfig, sp: SpokeConfig, batch=None):
                            **dtype_kw}}
 
 
-def wheel_dicts(cfg: RunConfig, mesh=None):
+def wheel_dicts(cfg: RunConfig, mesh=None, batch=None):
     """The full (hub_dict, spoke_dicts) pair for spin_the_wheel. The
     batch is built ONCE and shared by every cylinder (engines read the
     host arrays, they never write them), and so is its device cache
     (core/spbase): the shipped constraint matrix and bound vectors.
     ``mesh``: this rank's mesh, for a sharded hub engine; on ranks
-    other than 0 no spoke dict is built (those ranks run no spoke)."""
+    other than 0 no spoke dict is built (those ranks run no spoke).
+    ``batch``: a batch ``cfg`` already built (a resumed wheel on its
+    predecessor's batch), else it is built here."""
     cfg.validate()
     refuse_unported(cfg)
     if cfg.algo.scenario_source != "resident" and cfg.spokes:
@@ -285,7 +318,8 @@ def wheel_dicts(cfg: RunConfig, mesh=None):
                               "num_scens": cfg.num_scens,
                               "hub": cfg.hub,
                               "spokes": [sp.kind for sp in cfg.spokes]})
-    batch = build_batch_for(cfg)
+    if batch is None:
+        batch = build_batch_for(cfg)
     follower = mesh is not None and mesh.size > 1 and mesh.rank != 0
     spoke_ds = [] if follower else [spoke_dict(cfg, sp, batch=batch)
                                     for sp in cfg.spokes]
@@ -293,4 +327,15 @@ def wheel_dicts(cfg: RunConfig, mesh=None):
         # the spokes run on rank 0's card
         for sd in spoke_ds:
             sd["opt_kwargs"]["device"] = mesh.device
+    if cfg.checkpoint_dir or cfg.resume_from:
+        # per-spoke checkpoint/resume wiring needs the spoke INDEX
+        # (file naming), which spoke_dict alone never sees; the
+        # process launcher does the same injection per spawn
+        # (utils/multiproc._spawn_one_spoke, generation-aware)
+        from ..ckpt.spoke_state import spoke_resume_options
+        for i, (sp, sd) in enumerate(zip(cfg.spokes, spoke_ds)):
+            for k, v in spoke_resume_options(
+                    cfg.checkpoint_dir, cfg.resume_from, i,
+                    sp.kind).items():
+                sd["opt_kwargs"]["options"].setdefault(k, v)
     return hub_dict(cfg, batch=batch, mesh=mesh), spoke_ds

@@ -98,7 +98,16 @@ def test_every_module_imports_with_jax_poisoned():
               "mpisppy_tpu_torch.obs.recorder",
               "mpisppy_tpu_torch.obs.resource",
               "mpisppy_tpu_torch.obs.trace",
-              "mpisppy_tpu_torch.ops.forensics"):
+              "mpisppy_tpu_torch.ops.forensics",
+              # checkpoints, the W/x̄ files and the fault plans (the
+              # numpy-only ones the port's own copies)
+              "mpisppy_tpu_torch.ckpt",
+              "mpisppy_tpu_torch.ckpt.bundle",
+              "mpisppy_tpu_torch.ckpt.manager",
+              "mpisppy_tpu_torch.ckpt.spoke_state",
+              "mpisppy_tpu_torch.extensions.wxbar_io",
+              "mpisppy_tpu_torch.testing",
+              "mpisppy_tpu_torch.testing.faults"):
         assert m in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"

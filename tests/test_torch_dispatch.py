@@ -430,3 +430,80 @@ def test_farmer_family_frac02_solve_count_quarter_of_full(mem_obs):
     of, op = full.Eobjective_value(), part.Eobjective_value()
     assert abs(op - of) / abs(of) < 0.05
 
+
+
+# ---------------- checkpoint resume (tests/test_dispatch.py:357, :406)
+
+def _make_aph(num_scens=3, iters=5, **opt):
+    """tests/test_dispatch.py's make_aph(shared=True) on the port: the
+    farmer synth family (one shared A)."""
+    options = {"defaultPHrho": 1.0, "PHIterLimit": iters,
+               "convthresh": -1.0, "subproblem_max_iter": 3000,
+               "subproblem_eps": 1e-8}
+    options.update(opt)
+    return APH(_farmer_shared(num_scens), options, device="cpu")
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_ckpt_aph_state_roundtrip_and_resume_determinism(tmp_path,
+                                                         mem_obs):
+    """The APH extras of a hub bundle round-trip bit-equal, and two
+    engines resumed from one bundle walk identical trajectories (the
+    same dispatch picks)."""
+    from mpisppy_tpu_torch.ckpt.manager import resume_hub
+    from mpisppy_tpu_torch.cylinders.hub import Hub
+    from mpisppy_tpu_torch.utils.runtime import to_host
+    d = str(tmp_path)
+    opt = dict(num_scens=4, iters=4, dispatch_frac=0.5,
+               subproblem_chunk=2)
+    src = _make_aph(**opt)
+    src.APH_main(finalize=False)
+    hub = Hub(src, spokes=[], options={"checkpoint_dir": d,
+                                       "checkpoint_fingerprint": "fp"})
+    assert hub.ckpt.capture("test") is not None
+
+    resumed = []
+    for _ in range(2):
+        aph = _make_aph(**opt)
+        assert resume_hub(Hub(aph, spokes=[]), d,
+                          fingerprint="fp") is not None
+        resumed.append(aph)
+    for aph in resumed:
+        for name in ("z", "y_aph", "x", "phis"):
+            np.testing.assert_array_equal(to_host(getattr(aph, name)),
+                                          to_host(getattr(src, name)))
+        assert aph._last_dispatch.tolist() == src._last_dispatch.tolist()
+        assert aph._dispatched.tolist() == src._dispatched.tolist()
+        assert aph._iter == src._iter
+    for aph in resumed:
+        aph.spcomm = None
+        aph.APH_main(finalize=False)
+    a, b = resumed
+    for name in ("x", "W", "z", "phis"):
+        np.testing.assert_array_equal(to_host(getattr(a, name)),
+                                      to_host(getattr(b, name)))
+    assert a._dispatched.tolist() == b._dispatched.tolist()
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_ckpt_pre_aph_bundle_cold_starts_projective_state(tmp_path,
+                                                          mem_obs):
+    """A PH-hub bundle resumed into an APH wheel: (W, x̄, ρ) install
+    warm, the APH extras are absent, and the projective state stays
+    cold — no crash, no rejection."""
+    from mpisppy_tpu_torch.ckpt.manager import resume_hub
+    from mpisppy_tpu_torch.cylinders.hub import Hub
+    from mpisppy_tpu_torch.utils.runtime import to_host
+    d = str(tmp_path)
+    ph = PH(_farmer_shared(4), {"defaultPHrho": 1.0, "PHIterLimit": 3,
+                                "convthresh": -1.0,
+                                "subproblem_max_iter": 2000,
+                                "subproblem_eps": 1e-7}, device="cpu")
+    ph.ph_main(finalize=False)
+    hub = Hub(ph, spokes=[], options={"checkpoint_dir": d})
+    assert hub.ckpt.capture("test") is not None
+    aph = _make_aph(num_scens=4)
+    assert resume_hub(Hub(aph, spokes=[]), d) is not None
+    np.testing.assert_allclose(to_host(aph.W), to_host(ph.W))
+    assert float(np.abs(to_host(aph.z)).max()) == 0.0
+    assert getattr(aph, "_warm_started", False)

@@ -9,8 +9,10 @@ chosen scenario and its value (XhatClosest), the dumped objectives and
 the min/avg/max rows (Diagnoser, MinMaxAvg). Farmer runs with adaptive
 rho, whose trace roundoff drives apart in the two packages (ROADMAP.md
 C.1), so the cases of tests/test_extensions.py run on the port alone at
-that file's bars. The names that belong to later slices raise on
-import."""
+that file's bars, the W/x̄ files' cases (extensions/wxbar_io) among
+them, their sharded engines on gloo CPU ranks (parallel/launch; the
+rank programs are in tests/torch_mesh_ranks.py). The names that belong
+to later slices raise on import."""
 
 import importlib
 
@@ -301,7 +303,7 @@ def test_diagnoser_and_minmaxavg(tmp_path):
 
 
 # ROADMAP.md items whose names the port now has
-_LANDED_ITEMS = {"A9"}
+_LANDED_ITEMS = {"A9", "A14"}
 
 
 @pytest.mark.parametrize("module,name,item", [
@@ -316,7 +318,7 @@ _LANDED_ITEMS = {"A9"}
 def test_unported_extensions_raise_on_import(module, name, item):
     """A name of a slice still to come raises on import, naming its
     ROADMAP.md item; a name whose item has landed (A9, the shrinking
-    slice) imports as an Extension."""
+    slice; A14, the checkpoint slice) imports as an Extension."""
     mod = importlib.import_module(module)
     if item in _LANDED_ITEMS:
         ns = {}
@@ -328,3 +330,170 @@ def test_unported_extensions_raise_on_import(module, name, item):
             exec(f"from {module} import {name}", {})
     with pytest.raises(AttributeError):
         getattr(mod, "NoSuchName")
+
+
+# ---- the W/x̄ files (extensions/wxbar_io), tests/test_extensions.py's
+# cases on the port ----
+
+def test_wxbar_roundtrip(tmp_path):
+    from mpisppy_tpu_torch.extensions import wxbar_io
+    ph = make_ph(iters=4)
+    ph.ph_main()
+    ck = str(tmp_path / "state.npz")
+    wf, xf = str(tmp_path / "w.csv"), str(tmp_path / "xbar.csv")
+    wxbar_io.save_state(ph, ck)
+    wxbar_io.write_w_csv(ph, wf)
+    wxbar_io.write_xbar_csv(ph, xf)
+
+    ph2 = make_ph(iters=4)
+    wxbar_io.load_state(ph2, ck)
+    assert np.allclose(to_host(ph2.W), to_host(ph.W))
+    assert np.allclose(to_host(ph2.xbar), to_host(ph.xbar))
+    assert ph2._iter == ph._iter
+    assert ph2.W.dtype == ph.W.dtype and ph2.W.device == ph.W.device
+
+    ph3 = make_ph(iters=4)
+    wxbar_io.read_w_csv(ph3, wf)
+    wxbar_io.read_xbar_csv(ph3, xf)
+    assert np.allclose(to_host(ph3.W), to_host(ph.W), atol=1e-12)
+    assert np.allclose(to_host(ph3.xbar)[0], to_host(ph.xbar)[0],
+                       atol=1e-12)
+
+
+def test_wxbar_extensions_warm_start(tmp_path):
+    ck = str(tmp_path / "ck.npz")
+    ph = make_ph(iters=5, extensions=ext.WXBarWriter({"ckpt_fname": ck}))
+    ph.ph_main()
+    cold_trivial = ph.trivial_bound
+    # restarting from the file keeps the trained W, so the iter-0
+    # Lagrangian bound must be tighter than the cold wait-and-see bound
+    # while staying a valid outer bound
+    ph2 = make_ph(iters=1,
+                  extensions=ext.WXBarReader({"init_ckpt_fname": ck}))
+    ph2.ph_main()
+    assert getattr(ph2, "_warm_started", False)
+    assert ph2.trivial_bound > cold_trivial
+    assert ph2.trivial_bound <= -108390.0 + 10.0  # EF optimum + slack
+
+
+def test_xbar_only_warm_start_is_honored(tmp_path):
+    """An init_Xbar_fname-only warm start survives iter 0."""
+    from mpisppy_tpu_torch.extensions import wxbar_io
+    ph0 = make_ph(iters=0)
+    ph0.ph_main(finalize=False)
+    path = tmp_path / "xbar.csv"
+    ph0.xbar = ph0.xbar + 7.25
+    wxbar_io.write_xbar_csv(ph0, str(path))
+    reader = ext.WXBarReader({"init_Xbar_fname": str(path)})
+    ph1 = make_ph(iters=0, extensions=reader)
+    ph1.ph_main(finalize=False)
+    assert np.allclose(to_host(ph1.xbar), to_host(ph0.xbar), atol=1e-9)
+
+
+def test_xbar_csv_roundtrips_multistage_rows(tmp_path):
+    """Per-node x̄ values survive the CSV round-trip on a 3-stage tree."""
+    from mpisppy_tpu_torch.core.ph import PHBase
+    from mpisppy_tpu_torch.extensions import wxbar_io
+    batch = build_batch(hydro.scenario_creator, hydro.make_tree())
+    ph = PHBase(batch, {"defaultPHrho": 1.0, "subproblem_max_iter": 2000},
+                device="cpu")
+    ph.solve_loop(w_on=False, prox_on=False)
+    xbar0 = to_host(ph.xbar).copy()
+    k2 = batch.stage_slot_slices[1]
+    assert not np.allclose(xbar0[:, k2], xbar0[0:1, k2], atol=1e-9)
+    path = tmp_path / "xbar_ms.csv"
+    wxbar_io.write_xbar_csv(ph, str(path))
+    ph.xbar = ph.xbar * 0.0
+    wxbar_io.read_xbar_csv(ph, str(path))
+    assert np.allclose(to_host(ph.xbar), xbar0, atol=1e-12)
+
+
+def test_resume_trajectory_matches_uninterrupted(tmp_path):
+    """Checkpoint at iter k, resume in a FRESH engine, and the continued
+    trajectory matches the uninterrupted run to solver tolerance (the
+    resumed engine's warm iter-0 pass starts from cold solver states)."""
+    from mpisppy_tpu_torch.extensions import wxbar_io
+    k, extra = 3, 3
+    full = make_ph(iters=k + extra, convthresh=-1.0)
+    full.ph_main(finalize=False)
+
+    ph_a = make_ph(iters=k, convthresh=-1.0)
+    ph_a.ph_main(finalize=False)
+    ck = str(tmp_path / "k.npz")
+    wxbar_io.save_state(ph_a, ck)
+
+    ph_b = make_ph(iters=extra, convthresh=-1.0)
+    wxbar_io.load_state(ph_b, ck)
+    assert ph_b._iter == k
+    ph_b._warm_started = True
+    ph_b._warm_started_xbar = True
+    ph_b.ph_main(finalize=False)
+
+    scale = float(np.abs(to_host(full.xbar)).max())
+    np.testing.assert_allclose(to_host(ph_b.xbar), to_host(full.xbar),
+                               atol=1e-4 * scale, rtol=1e-5)
+    np.testing.assert_allclose(to_host(ph_b.W), to_host(full.W),
+                               atol=1e-4 * scale, rtol=1e-5)
+
+
+_WX_OPTS = {"defaultPHrho": 1.0, "convthresh": -1.0,
+            "subproblem_max_iter": 2000, "subproblem_eps": 1e-7}
+
+
+def test_resume_trajectory_sharded_unsharded_band(tmp_path):
+    """A file captured by an UNSHARDED run at iter k, resumed in an
+    engine sharded over 2 gloo ranks, lands in a band of the unsharded
+    continuation (the reductions' order changes the floating-point
+    composition, not the trajectory)."""
+    import torch_mesh_ranks as ranks
+    from mpisppy_tpu_torch.extensions import wxbar_io
+    from mpisppy_tpu_torch.parallel.launch import launch
+    ph_a = PH(build_batch(farmer.scenario_creator, farmer.make_tree(4)),
+              dict(_WX_OPTS, PHIterLimit=2), device="cpu")
+    ph_a.ph_main(finalize=False)
+    ck = str(tmp_path / "k.npz")
+    wxbar_io.save_state(ph_a, ck)
+    spec = {"S": 4, "ck": ck, "opts": dict(_WX_OPTS, PHIterLimit=2)}
+    plain = ranks.wxbar_resume(None, spec)
+    sharded = launch(ranks.wxbar_resume, 2, (spec,), device="cpu")[0]
+    scale = max(float(np.abs(plain).max()), 1.0)
+    np.testing.assert_allclose(sharded, plain, atol=5e-4 * scale,
+                               rtol=1e-4)
+
+
+def test_checkpoint_portable_between_sharded_and_unsharded(tmp_path):
+    """Files carry REAL scenarios only: one written by a run sharded over
+    4 ranks (10 scenarios padded to 12) loads into an unsharded run of
+    the same model and vice versa, the pads re-filled from the last
+    real row; the CSV writer trims pad rows too."""
+    import torch_mesh_ranks as ranks
+    from mpisppy_tpu_torch.extensions import wxbar_io
+    from mpisppy_tpu_torch.parallel.launch import launch
+    opts = {"defaultPHrho": 1.0, "PHIterLimit": 1, "convthresh": 0.0,
+            "subproblem_max_iter": 2000}
+    ck_sh = str(tmp_path / "sharded.npz")
+    spec = {"S": 10, "opts": opts, "ck": ck_sh,
+            "csv": str(tmp_path / "w.csv")}
+    out = launch(ranks.wxbar_sharded_save, 4, (spec,), device="cpu")[0]
+    assert out["S"] == 12
+    K = out["W"].shape[1]
+    with np.load(ck_sh) as d:
+        assert d["W"].shape == (10, K)              # real rows only
+
+    ph0 = PH(build_batch(farmer.scenario_creator, farmer.make_tree(10)),
+             dict(opts), device="cpu")
+    wxbar_io.load_state(ph0, ck_sh)                 # must not raise
+    np.testing.assert_allclose(to_host(ph0.W), out["W"][:10], rtol=1e-12)
+
+    # reverse direction: an unsharded file into a sharded engine
+    ck_plain = str(tmp_path / "plain.npz")
+    wxbar_io.save_state(ph0, ck_plain)
+    back = launch(ranks.wxbar_sharded_load, 4,
+                  ({"S": 10, "opts": opts, "ck": ck_plain},),
+                  device="cpu")[0]
+    assert back["W"].shape == (12, K)
+    np.testing.assert_array_equal(back["W"][:10], to_host(ph0.W))
+    pads = back["xbar"][10:]
+    np.testing.assert_allclose(
+        pads, np.broadcast_to(back["xbar"][9], pads.shape), rtol=0)
+    assert "_pad" not in open(tmp_path / "w.csv").read()

@@ -531,6 +531,33 @@ _STREAMED = ["farmer", "--scenario-source", "streamed",
              "--subproblem-chunk", "2", "--device", "cpu"]
 
 
+def _run_a14_streamed_case(argv, tmp_path, capsys):
+    """The A14 cases of test_cli_refuses_what_streaming_still_lacks:
+    ``c`` is a fresh checkpoint directory; a resume case first writes
+    a bundle there with the same command line."""
+    from mpisppy_tpu_torch.__main__ import main
+    from mpisppy_tpu_torch.ckpt.bundle import load_bundle
+    ck = str(tmp_path / "c")
+    short = ["--num-scens", "4", "--max-iterations", "2", "--convthresh",
+             "-1", "--default-rho", "50", "--subproblem-max-iter", "1500"]
+    uc_argv = ["uc", "--model-kwargs", json.dumps(UC_KW)] + [
+        ck if a == "c" else a for a in argv[1:]]
+    if "--resume-from" in argv:
+        assert main(uc_argv[:1 + 2] + _STREAMED[1:] + short
+                    + ["--checkpoint-dir", ck]) == 0
+        capsys.readouterr()
+    assert main(uc_argv + short) == 0
+    out = capsys.readouterr().out
+    assert np.isfinite(json.loads(out.strip().splitlines()[-1])
+                       ["outer_bound"])
+    manifest, arrays, _ = load_bundle(ck)
+    assert manifest["reason"] == "finalize"
+    # the resident hub state only: (W, x̄, x̄², ρ) of the real rows
+    assert arrays["W"].shape[0] == 4 and "aph_z" not in arrays
+    if "--resume-from" in argv:
+        assert "checkpoint resume: iter 2" in out
+
+
 @pytest.mark.parametrize("argv,item", [
     (_STREAMED + ["--telemetry-dir", "t"], "A13"),
     (_STREAMED + ["--checkpoint-dir", "c"], "A14"),
@@ -538,12 +565,17 @@ _STREAMED = ["farmer", "--scenario-source", "streamed",
     (["serve", "--scenario-source", "streamed"], "A15")])
 def test_cli_refuses_what_streaming_still_lacks(argv, item, tmp_path,
                                                 capsys):
-    """A streamed wheel's checkpoint and resume (A14) and streamed serve
-    tenants (A15) refuse, naming their items. Streaming's telemetry and
-    its analyze section (A13) are ported: that case runs the command
-    line and reads the streaming section and the records' ``stream.*``
-    counter deltas back."""
+    """Streamed serve tenants (A15) refuse, naming their item.
+    Streaming's telemetry and its analyze section (A13) are ported: that
+    case runs the command line and reads the streaming section and the
+    records' ``stream.*`` counter deltas back. A streamed wheel's
+    checkpoint and resume (A14) are ported: those cases run the command
+    line on UC 3 x 6 and read the bundle of the resident hub state back,
+    and the resumed run installs it."""
     from mpisppy_tpu_torch.__main__ import main
+    if item == "A14":
+        _run_a14_streamed_case(argv, tmp_path, capsys)
+        return
     if item == "A13":
         tdir = str(tmp_path / "t")
         argv = [tdir if a == "t" else a for a in argv]
@@ -568,3 +600,84 @@ def test_cli_refuses_what_streaming_still_lacks(argv, item, tmp_path,
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         main(argv)
+
+
+# ---------------- checkpoints (tests/test_stream.py:392, :430) --------
+
+def test_sigterm_preempts_streamed_wheel_cleanly(tmp_path):
+    """SIGTERM a live streamed CLI wheel with checkpointing armed: the
+    preemption notice captures a bundle and the process EXITS (no hang
+    on the prefetch thread)."""
+    import os
+    import signal
+    import subprocess
+    import sys
+    import time
+    from mpisppy_tpu_torch.ckpt.bundle import load_bundle
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=repo)
+    env.pop("MPISPPY_TPU_TELEMETRY_DIR", None)
+    ck = str(tmp_path / "ckpt")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "mpisppy_tpu_torch", "farmer",
+         "--num-scens", "64", "--scenario-source", "synthesized",
+         "--subproblem-chunk", "8", "--max-iterations", "500",
+         "--convthresh", "-1", "--subproblem-max-iter", "2000",
+         "--checkpoint-dir", ck, "--checkpoint-interval", "1",
+         "--device", "cpu"], cwd=repo, env=env,
+        stdout=subprocess.DEVNULL)
+    try:
+        deadline = time.time() + 180
+        while time.time() < deadline:
+            if os.path.isdir(ck) and any(n.startswith("bundle-")
+                                         for n in os.listdir(ck)):
+                break
+            if proc.poll() is not None:
+                pytest.fail("wheel died before first checkpoint")
+            time.sleep(0.5)
+        else:
+            pytest.fail("no checkpoint appeared")
+        proc.send_signal(signal.SIGTERM)
+        proc.wait(timeout=120)
+        assert proc.returncode == 0
+        manifest, _, _ = load_bundle(ck)
+        assert manifest.get("iter", 0) >= 0
+        reasons = {json.load(open(os.path.join(ck, n, "manifest.json")))
+                   ["reason"] for n in os.listdir(ck)
+                   if n.startswith("bundle-")}
+        assert "preempt" in reasons
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+
+
+def test_ckpt_resume_of_streamed_wheel(tmp_path, mem_obs):
+    """A streamed wheel's bundle carries only the resident hub state —
+    capture at iter k, resume a FRESH streamed engine, and the resumed
+    trajectory matches the uninterrupted one to solver tolerance (the
+    resumed engine rebuilds cold solver states)."""
+    from mpisppy_tpu_torch.ckpt.manager import resume_hub
+    from mpisppy_tpu_torch.utils.runtime import to_host
+    d = str(tmp_path)
+    b_res, _, _ = farmer_pair()
+    opts = dict(FARMER_OPTS, scenario_source="streamed")
+    ph_ref = PH(b_res, dict(opts, PHIterLimit=8), device="cpu")
+    ph_ref.ph_main()
+    ph_ref.close_stream()
+    ph1 = PH(b_res, dict(opts, PHIterLimit=5), device="cpu")
+    ph1.ph_main(finalize=False)
+    hub1 = Hub(ph1, spokes=[], options={"checkpoint_dir": d,
+                                        "checkpoint_fingerprint": "fp"})
+    assert hub1.ckpt.capture("test")
+    ph1.close_stream()
+    ph2 = PH(b_res, dict(opts, PHIterLimit=3), device="cpu")
+    hub2 = Hub(ph2, spokes=[])
+    assert resume_hub(hub2, d, fingerprint="fp") is not None
+    assert ph2._iter == ph1._iter
+    ph2.spcomm = None
+    ph2.ph_main()
+    np.testing.assert_allclose(to_host(ph2.xbar), to_host(ph_ref.xbar),
+                               atol=1e-5)
+    np.testing.assert_allclose(to_host(ph2.W), to_host(ph_ref.W),
+                               atol=1e-4)
+    ph2.close_stream()

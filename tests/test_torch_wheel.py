@@ -215,9 +215,14 @@ def test_cli_refuses_what_is_not_ported(argv, item, tmp_path, capsys,
     """What is not ported refuses, naming its item. The telemetry files,
     the live plane and ``analyze`` (A13) are ported: those cases run the
     same command line (with a short run and a fresh directory for
-    ``t``) and check what it writes."""
+    ``t``) and check what it writes. Checkpoints (A14) are ported: that
+    case runs the command line with a fresh directory for ``c``, reads
+    its final bundle back, and resumes a second run from it."""
     if item == "A13":
         _run_a13_case(argv, tmp_path, capsys)
+        return
+    if item == "A14":
+        _run_a14_case(argv, tmp_path, capsys)
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         main(argv + ["--device", "cpu"] if argv[0] not in ("analyze",
@@ -228,6 +233,27 @@ def test_cli_refuses_what_is_not_ported(argv, item, tmp_path, capsys,
 _SHORT_RUN = ["--num-scens", "3", "--default-rho", "10",
               "--max-iterations", "3", "--convthresh", "-1",
               "--subproblem-max-iter", "2000", "--device", "cpu"]
+
+
+def _run_a14_case(argv, tmp_path, capsys):
+    import json
+    from mpisppy_tpu_torch.ckpt.bundle import load_bundle
+    from mpisppy_tpu_torch.utils.vanilla import ckpt_fingerprint
+    ck = str(tmp_path / "c")
+    argv = [ck if a == "c" else a for a in argv]
+    assert main(argv + _SHORT_RUN) == 0
+    first = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    manifest, arrays, _ = load_bundle(ck)
+    cfg = config_from_args(make_parser().parse_args(argv + _SHORT_RUN))
+    assert manifest["reason"] == "finalize" and manifest["iter"] == 3
+    assert manifest["fingerprint"] == ckpt_fingerprint(cfg)
+    assert manifest["outer"] == first["outer_bound"]
+    assert arrays["W"].shape[0] == 3
+    assert main(["farmer", "--resume-from", ck] + _SHORT_RUN) == 0
+    out = capsys.readouterr().out
+    assert "checkpoint resume: iter 3" in out
+    resumed = json.loads(out.strip().splitlines()[-1])
+    assert resumed["outer_bound"] >= first["outer_bound"]
 
 
 def _run_a13_case(argv, tmp_path, capsys):
@@ -470,16 +496,20 @@ def test_base_receive_does_not_consume_cut_windows():
     assert hub._spoke_last_ids[ci] > 0 and len(eng.cuts) == 1
 
 
-def test_hub_refuses_unported_options():
-    """Checkpoints (A14) refuse; ``status_port`` (A13, ported) starts
-    the hub's status server, which answers /healthz and releases its
-    port on shutdown_live."""
+def test_hub_refuses_unported_options(tmp_path):
+    """Checkpoints (A14, ported) arm the hub's manager and the spokes'
+    warm-state files, and a resume from a directory without a bundle
+    cold-starts instead of raising; ``status_port`` (A13, ported)
+    starts the hub's status server, which answers /healthz and releases
+    its port on shutdown_live."""
     import json
+    import os
     import urllib.request
     opt = PH(_farmer(), _opts(), device="cpu")
-    for key in ("checkpoint_dir", "resume_from"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A14"):
-            PHHub(opt, options={key: "d"})
+    hub = PHHub(opt, options={"checkpoint_dir": str(tmp_path / "d")})
+    assert hub.ckpt is not None and hub.ckpt.capture("test")
+    PHHub(PH(_farmer(), _opts(), device="cpu"),
+          options={"resume_from": str(tmp_path / "none")})
     hub = PHHub(opt, options={"status_port": 0})
     try:
         port = hub._status_server.port
@@ -493,9 +523,11 @@ def test_hub_refuses_unported_options():
     finally:
         hub.shutdown_live()
     assert hub._status_server is None
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A14"):
-        LagrangianOuterBound(PHBase(_farmer(), _opts(), device="cpu"),
-                             options={"checkpoint_dir": "d"})
+    lag = LagrangianOuterBound(PHBase(_farmer(), _opts(), device="cpu"),
+                               options={"checkpoint_dir":
+                                        str(tmp_path / "s")})
+    lag.maybe_write_spoke_state(force=True)
+    assert os.path.isfile(str(tmp_path / "s" / "spokes" / "spoke0.npz"))
 
 
 # ---- the config and parser cases of the JAX package's CLI tests ----

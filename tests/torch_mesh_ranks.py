@@ -371,3 +371,47 @@ def ph_forensics(mesh, spec):
         return [e["forensics"] for _, e in obs.events("ph.iteration")]
     finally:
         obs.shutdown()
+
+
+def wxbar_resume(mesh, spec):
+    """PH over farmer(``S``) resumed from the W/x̄ file ``ck``
+    (extensions/wxbar_io.load_state with both warm flags) for the
+    options' iterations; the REAL rows of x̄ afterwards."""
+    torch.set_num_threads(1)
+    from mpisppy_tpu_torch.core.ph import PH
+    from mpisppy_tpu_torch.extensions import wxbar_io
+    ph = PH(build("farmer", spec["S"]), dict(spec["opts"]), device="cpu",
+            mesh=mesh)
+    wxbar_io.load_state(ph, spec["ck"])
+    ph._warm_started = True
+    ph._warm_started_xbar = True
+    ph.ph_main(finalize=False)
+    return _whole(ph, ph.xbar)[:ph._S_orig]
+
+
+def wxbar_sharded_save(mesh, spec):
+    """PH over farmer(``S``) on the mesh, then save_state to ``ck`` and
+    the W CSV to ``csv`` (collective: rank 0 writes); the padded whole
+    W and its row count."""
+    torch.set_num_threads(1)
+    from mpisppy_tpu_torch.core.ph import PH
+    from mpisppy_tpu_torch.extensions import wxbar_io
+    ph = PH(build("farmer", spec["S"]), dict(spec["opts"]), device="cpu",
+            mesh=mesh)
+    ph.ph_main()
+    wxbar_io.save_state(ph, spec["ck"])
+    wxbar_io.write_w_csv(ph, spec["csv"])
+    return {"S": ph.global_batch.S, "W": _whole(ph, ph.W)}
+
+
+def wxbar_sharded_load(mesh, spec):
+    """A fresh PH over farmer(``S``) on the mesh with ``ck`` loaded:
+    its padded whole W and x̄."""
+    torch.set_num_threads(1)
+    from mpisppy_tpu_torch.core.ph import PH
+    from mpisppy_tpu_torch.extensions import wxbar_io
+    ph = PH(build("farmer", spec["S"]), dict(spec["opts"]), device="cpu",
+            mesh=mesh)
+    wxbar_io.load_state(ph, spec["ck"])
+    return {"W": _whole(ph, ph.W), "xbar": _whole(ph, ph.xbar),
+            "iter": ph._iter}
