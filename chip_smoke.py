@@ -22,8 +22,8 @@
    version, torch.matmul products with and without the residual tail's
    two) and breaks the kernel's time down per product against streaming
    each product's matrix once;
-5. runs the scenario-chunked PH loop on the same instance, S = 40 in
-   chunks of 16 (16, 16 and a padded 8), with the hospital off, and
+5. runs the scenario-chunked PH loop on the same instance, S = 34 in
+   chunks of 16 (16, 16 and a padded 2), with the hospital off, and
    checks the launch count (one block call per chunk and solve), no
    demotion, one gate sync per iteration, iter-0 feasibility,
    sum_s p_s W_s = 0, finite results, holds the block against its plain
@@ -82,7 +82,7 @@
    --dispatch-frac 0.25 --subproblem-chunk 16 --with-xhatshuffle``
    builds (``aph_path``: the RunConfig through utils/vanilla's hub and
    spoke dicts and utils/sputils.spin_the_wheel) on the chunked path's
-   S = 40 batch: the APH hub for APH_ITERS iterations, the x̂ spoke with
+   S = 34 batch: the APH hub for APH_ITERS iterations, the x̂ spoke with
    the bench's oracle recipe; checks the block launches against the
    plan (three chunk calls at iters 0 and 1, one per partial iteration),
    no demotion, one gate sync per iteration, the dispatch counters, the
@@ -199,10 +199,27 @@
    (``telemetry_wheel``); the sharded APH wheel records every process
    under its role and its merged trace must have one track per process
    (``telemetry_shards``);
+23. serves two requests through the port's service (``serve_path``,
+   cell uc-ref-S2-serve): ``ServeService`` (serve/manager.py) behind
+   ``ServeHTTPServer`` on 127.0.0.1 at port 0, a temporary state
+   directory, engines on the card, one request per wheel; the reference
+   UC at SERVE_SCENARIOS scenarios (its widths; relax_integrality True
+   for the consensus evaluation), SERVE_ALGO's fused cuda options and
+   one prox-on iteration, each request with its own data-only patch of
+   the balance rows, POSTed over loopback with urllib one after the
+   other; checks that both reach ``done``, that the second hits the
+   warm bucket with no kernel build and no factor build, that each
+   request launched the block SERVE_SOLVES x one solve's count with no
+   demotion and every plan cuda, that each objective is finite, feasible
+   and at or above its wheel's outer bound, that the two requests'
+   outer bounds differ (the patch reached the card) and that LATEST
+   resolves to a bundle in each request's checkpoint namespace; holds
+   the block against its plain version on the warm engine's prox-on
+   operands;
 then prints one {"kernels": [...]} line whose launches count phases 3,
-5, 10, 11, 12, 13, 15, 16, 17, 19 (every rank's), 20 and 22 and whose
-max_abs_err is the largest of phases 4, 5, 10, 11, 12, 13, 15, 16, 17,
-19, 20 and 22.
+5, 10, 11, 12, 13, 15, 16, 17, 19 (every rank's), 20, 22 and 23 and
+whose max_abs_err is the largest of phases 4, 5, 10, 11, 12, 13, 15,
+16, 17, 19, 20, 22 and 23.
 The last line is {"ok": true, "device": {...}}; any failed check raises.
 """
 
@@ -240,8 +257,11 @@ PH_OPTS = {"defaultPHrho": 100.0, "PHIterLimit": 1, "convthresh": -1.0,
            "subproblem_polish_hot": False,
            "subproblem_polish_chunk": 2}
 # the chunked path: S scenarios in chunks of CHUNK rows (the JAX
-# package's bench runs 1024 in chunks of 128; cut for the run's time)
-CHUNK_SCENARIOS = 40
+# package's bench runs 1024 in chunks of 128; cut for the run's time:
+# 40 until the serve phase; the unchunked comparison's block call and
+# the df32 steps scale with the rows, the chunked solves do not, since
+# the padded last chunk polishes its pad rows too)
+CHUNK_SCENARIOS = 34
 CHUNK = 16
 # prox-on iterations of the chunked path (PH_OPTS' 2 until a cut in depth
 # for the script's time; its unchunked comparison is after iteration 1)
@@ -280,10 +300,10 @@ XHAT_ORACLE = {"xhat_oracle_candidates": True,
                "xhat_oracle_time_limit": 120.0, "xhat_oracle_gap": 5e-3}
 
 # APH (phases 11 and 12): the chunked path's batch under φ-dispatch of
-# a quarter of the scenarios (10 of 40: one 16-row chunk call per
+# a quarter of the scenarios (9 of 34: one 16-row chunk call per
 # partial iteration) for APH_ITERS iterations (5, then 3, until cuts in
 # depth for the script's time), and the sharded wheel at S = 4 (cut from the
-# chunked path's 40 for the run's time; the widths stay the reference
+# chunked path's 34 for the run's time; the widths stay the reference
 # instance's) for APH_SHARD_ITERS iterations (4 until a cut in depth for
 # the script's time)
 APH_ITERS = 2
@@ -1288,7 +1308,7 @@ DF32 = {
     "display_timing": True,
 }
 # the JAX bench runs S = 1024 in chunks of 128; cut to the chunked
-# path's S = 40 in chunks of 16 for the run's time, and to DF32_ITERS
+# path's S = 34 in chunks of 16 for the run's time, and to DF32_ITERS
 # PH iterations (3 until a cut in depth)
 DF32_CHUNK = 16
 DF32_ITERS = 2
@@ -1297,8 +1317,9 @@ DF32_ITERS = 2
 DF32_ITER0_TOL = 5e-3
 # rows per call of df32_scaling (beside block_scaling's native rows)
 DF32_SCALING_ROWS = (16, 128)
-# steps per timed df32 call (one residual check at the end)
-DF32_STEPS = 100
+# steps per timed df32 call (one residual check at the end; 100, with
+# two timed calls per piece, until the serve phase)
+DF32_STEPS = 50
 # the split matvec's f32 floor, relative to each row's sum of |terms|
 SPLIT_FLOOR = 2e-6
 
@@ -1361,7 +1382,7 @@ def packed_fault_check(factors, dev):
     return failures
 
 
-def df32_step_timing(factors, d, q, st, plan, reps=2, profile=False):
+def df32_step_timing(factors, d, q, st, plan, reps=1, profile=False):
     """CUDA-event ms of one chunk's df32 pieces: the split factorization,
     the L⁻¹ build, a DF32_STEPS-step f32 bulk call and a DF32_STEPS-step
     df32 tail call (fixed rho, no exit, one residual check), each beside
@@ -1542,8 +1563,8 @@ def df32_path(dev, batch, native, ref):
     breakdown = df32_step_timing(*ops, plan, profile=on_card)
     log(json.dumps({
         "phase": "df32_path", "S": batch.S, "chunk": DF32_CHUNK,
-        "reduced": "S 1024 -> 40, chunk 128 -> 16 (the JAX bench's "
-                   "uc1024 cell; cut for the run's time)",
+        "reduced": f"S 1024 -> {CHUNK_SCENARIOS}, chunk 128 -> 16 (the "
+                   "JAX bench's uc1024 cell; cut for the run's time)",
         "options": opts, "ship_s": t_ship, "ph_main_s": t_main,
         "iterations": it_log.rows,
         "ph_s_per_iteration": [r["seconds"] for r in it_log.rows],
@@ -1870,9 +1891,8 @@ def ckpt_path(dev, batch, phase10):
     cfg.algo.max_iterations = CKPT_ITERS
     cfg.hub_options["PHIterLimit"] = CKPT_ITERS
     cfg.resume_from = src["dir"]
-    # a directory of its own: the resumed engine counts its iterations
-    # from 0 again (as the JAX package's does), so its bundles would
-    # sort below phase 10's under one retention
+    # a directory of its own: phase 10's stays as that wheel wrote it
+    # for the checks below
     cfg.checkpoint_dir = tempfile.mkdtemp(prefix="ckpt_resume_")
     failures = []
     manifest, _, spoke_files = ckpt_bundle.load_bundle(src["dir"])
@@ -4211,6 +4231,205 @@ def stream_path(dev):
     return launches_all, err, failures
 
 
+# the service (phase 23, uc-ref-S2-serve): two requests of the reference
+# UC at its widths, SERVE_SCENARIOS scenarios each, one after the other
+# (the second the warm-bucket request), each with its own data-only
+# patch of the balance rows (every scenario's own net load times the
+# factor); the QP is the reference UC's, with relax_integrality True so
+# that the consensus evaluation does not round the commitments (x̄
+# rounded after one PH iteration is infeasible at the reference UC)
+SERVE_SCENARIOS = 2
+SERVE_LOADS = (1.00, 1.01)
+SERVE_ALGO = {"subproblem_kernel_mode": "fused",
+              "subproblem_kernel_backend": "cuda",
+              "subproblem_max_iter": SLICE_BUDGET, "default_rho": 100.0,
+              "max_iterations": 1, "convthresh": -1.0}
+# solves per request: iteration 0, one prox-on iteration and the
+# consensus evaluation (fixed nonants, prox off)
+SERVE_SOLVES = 3
+
+
+def _serve_http(url, payload=None, timeout=30):
+    import urllib.request
+    req = urllib.request.Request(
+        url, data=None if payload is None else json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read().decode())
+
+
+def serve_path(dev):
+    """Phase 23 (uc-ref-S2-serve): the port's service on the card. A
+    ``ServeService`` (serve/manager.py) behind its HTTP plane
+    (serve/http.py) on 127.0.0.1 at an ephemeral port, engines on
+    ``dev``, one request per wheel; two UC requests POSTed over loopback
+    one after the other: the first builds the bucket's engine, the
+    second installs its data into the warm one. Returns (block launches
+    of the two requests, the block's largest difference from its plain
+    version on the warm request's prox-on operands, the failed checks);
+    prints one JSON line."""
+    import math
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from mpisppy_tpu_torch import obs
+    from mpisppy_tpu_torch.ckpt import bundle as ckpt_bundle
+    from mpisppy_tpu_torch.core.ph import _ph_assemble
+    from mpisppy_tpu_torch.models import uc
+    from mpisppy_tpu_torch.ops.kernels import admm_block
+    from mpisppy_tpu_torch.serve.http import ServeHTTPServer
+    from mpisppy_tpu_torch.serve.manager import ServeService
+    from mpisppy_tpu_torch.utils.config import ServeConfig
+
+    kw = dict(SLICE_INSTANCE, relax_integrality=True)
+    names = uc.make_tree(SERVE_SCENARIOS).scen_names
+    net = np.stack([uc.scenario_vector_patch(nm, **kw)[("l", "balance")]
+                    for nm in names])
+    per_solve = admm_block.admm_block_launches(SLICE_BUDGET, False)
+    state = tempfile.mkdtemp(prefix="serve_state_")
+    failures, rows, launches = [], [], 0
+    on_card = torch.device(dev).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    obs.configure(out_dir=None)
+    t0 = time.perf_counter()
+    svc = ServeService(ServeConfig(state_dir=state, device=str(dev),
+                                   batch_max=1, batch_window=0.0))
+    svc.start()
+    srv = ServeHTTPServer(svc, 0, host="127.0.0.1").start()
+    base = f"http://127.0.0.1:{srv.port}"
+    t_up = time.perf_counter() - t0
+    try:
+        for f in SERVE_LOADS:
+            rhs = (net * f).tolist()
+            payload = {"model": "uc", "num_scens": SERVE_SCENARIOS,
+                       "model_kwargs": kw, "algo": SERVE_ALGO,
+                       "patch": {"l": {"balance": rhs},
+                                 "u": {"balance": rhs}}}
+            calls0 = obs.counter_value("ph.solve_loop_calls")
+            admm_block.LAUNCHES = 0
+            t0 = time.perf_counter()
+            rid = _serve_http(base + "/solve", payload)["request_id"]
+            while True:
+                rec = _serve_http(f"{base}/result/{rid}")
+                if rec["status"] in ("done", "failed") \
+                        or time.perf_counter() - t0 > 900:
+                    break
+                time.sleep(0.05)
+            t_req = time.perf_counter() - t0
+            n = admm_block.LAUNCHES
+            launches += n
+            solves = obs.counter_value("ph.solve_loop_calls") - calls0
+            rows.append({"id": rid, "load": f, "status": rec["status"],
+                         "error": rec.get("error"), "request_s": t_req,
+                         "launches": n, "solves": solves,
+                         "result": rec.get("result")})
+    finally:
+        srv.stop()
+        svc.stop()
+    demotions = obs.events("kernel.cuda_demotion")
+    counters = obs.counters_snapshot()
+    obs.shutdown()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    for k, r in enumerate(rows):
+        tag = f"request {k} ({r['id']})"
+        res = r["result"] or {}
+        wheel = res.get("wheel") or {}
+        if r["status"] != "done":
+            failures.append(f"{tag}: {r['status']} ({r['error']})")
+            continue
+        if wheel.get("cache_hit") is not bool(k):
+            failures.append(f"{tag}: cache_hit {wheel.get('cache_hit')}")
+        if k and (wheel.get("kernel_builds_delta") != 0
+                  or wheel.get("factor_builds_delta") != 0
+                  or wheel.get("xla_compiles_delta") != 0):
+            failures.append(f"{tag}: the warm request built kernels or "
+                            f"factors: {wheel}")
+        if r["solves"] != SERVE_SOLVES \
+                or r["launches"] != SERVE_SOLVES * per_solve:
+            failures.append(f"{tag}: {r['launches']} block launches over "
+                            f"{r['solves']} solves, expected "
+                            f"{SERVE_SOLVES} x {per_solve}")
+        obj, outer = res.get("objective"), wheel.get("outer_bound")
+        if not (res.get("feasible") and obj is not None
+                and outer is not None and math.isfinite(obj)
+                and math.isfinite(outer) and obj >= outer):
+            failures.append(f"{tag}: objective {obj} (feasible "
+                            f"{res.get('feasible')}) against outer bound "
+                            f"{outer}")
+        ns = os.path.join(state, "ckpt", r["id"])
+        latest = ckpt_bundle.latest_bundle(ns)
+        try:
+            pointer = open(os.path.join(ns, ckpt_bundle.LATEST),
+                           encoding="utf-8").read().strip()
+            ckpt_bundle.load_bundle(latest)
+        except (OSError, TypeError, ckpt_bundle.CheckpointError) as e:
+            pointer = f"unreadable: {e!r}"
+        if latest is None or pointer != os.path.basename(latest):
+            failures.append(f"{tag}: no bundle that LATEST resolves to "
+                            f"under {ns} ({pointer})")
+        r["bundle"] = None if latest is None else os.path.basename(latest)
+    bounds = [((r["result"] or {}).get("wheel") or {}).get("outer_bound")
+              for r in rows]
+    if len(set(bounds)) != len(rows):
+        failures.append(f"the requests' outer bounds do not differ: "
+                        f"{bounds} (the patch did not reach the card)")
+    if demotions:
+        failures.append(f"kernel demotion booked: {demotions}")
+    # the warm engine, checked back into the service's cache
+    err, plans = float("nan"), {}
+    ekey = ((rows[-1]["result"] or {}).get("wheel") or {}).get(
+        "engine_key") if rows else None
+    ent = svc.cache.checkout(ekey, wait=False) if ekey else None
+    if ent is None:
+        failures.append("the warm engine is not in the service's cache")
+    else:
+        ph = ent.engine
+        plans = {str(k): p.descriptor() for k, p in
+                 ph._kernel_plans.items()}
+        if not plans or any(p.backend != "cuda"
+                            for p in ph._kernel_plans.values()):
+            failures.append(f"a kernel plan of the service is not cuda: "
+                            f"{plans}")
+        factors, data = ph._get_factors(True)
+        st = ph._qp_states[True]
+        q, _, _ = _ph_assemble(data, ph.c, ph.W, ph.xbar, ph.rho,
+                               ph.nonant_idx, ph._fixed_mask,
+                               ph._fixed_vals, ph._w_scale, w_on=True,
+                               prox_on=True)
+        err, f = compare(factors, data, q, st, 20, "serve_warm_prox_on")
+        failures += f
+        del ph, factors, data, st, q
+        svc.cache.discard(ent)
+    admm_block.LAUNCHES = launches   # the comparison's are not the path's
+    log(json.dumps({
+        "phase": "serve_path", "cell": "uc-ref-S2-serve",
+        "card": card_line(), "service_up_s": t_up,
+        "requests": [{
+            "load": r["load"], "status": r["status"],
+            "request_s": r["request_s"], "solves": r["solves"],
+            "launches": r["launches"], "bundle": r.get("bundle"),
+            **{k: ((r["result"] or {}).get("wheel") or {}).get(k)
+               for k in ("cache_hit", "seconds", "engine_seconds",
+                         "iterations", "outer_bound",
+                         "kernel_builds_delta", "factor_builds_delta",
+                         "xla_compiles_delta")},
+            "objective": (r["result"] or {}).get("objective")}
+            for r in rows],
+        "expected_launches_per_request": SERVE_SOLVES * per_solve,
+        "launches": launches, "demotions": len(demotions),
+        "plans": plans, "peak_gb": peak_gb,
+        "counters": {k: v for k, v in counters.items()
+                     if k.startswith("serve.")}}))
+    del svc, srv
+    shutil.rmtree(state, ignore_errors=True)
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return launches, err, failures
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4352,15 +4571,19 @@ def main():
     mark("20_stream_path")
     if failures:
         raise RuntimeError("stream path failed: " + "; ".join(failures))
+    serve_launches, serve_err, failures = serve_path(dev)
+    mark("23_serve_path")
+    if failures:
+        raise RuntimeError("serve path failed: " + "; ".join(failures))
     launches += chunk_launches + wheel_launches + aph_launches \
         + shard_launches + ls_launches + fw_launches + bundle_launches \
         + shrink_launches + mesh_launches + stream_launches \
-        + ckpt_launches
+        + ckpt_launches + serve_launches
     # the largest difference at any shape of the path
     timing["max_abs_err"] = max(timing["max_abs_err"], chunk_err,
                                 wheel_err, aph_err, shard_err, ls_err,
                                 fw_err, bundle_err, shrink_err, mesh_err,
-                                stream_err, ckpt_err)
+                                stream_err, ckpt_err, serve_err)
     entry = {"name": "admm_block", "route": "cuda",
              "source": "mpisppy_tpu_torch/ops/kernels/csrc/admm_block.cu",
              "replaces": "mpisppy_tpu/ops/kernels/pallas_kernel.py:100",

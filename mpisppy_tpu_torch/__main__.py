@@ -10,7 +10,8 @@ extensive form (core/ef.py; ``--EF-integer`` as a MIP) and prints
 ``--device`` picks the engines' device (default: the CUDA device; the
 run raises without one unless ``--device cpu`` is given). What the port
 does not run yet refuses, naming its ROADMAP.md item: the cross-scenario
-spoke and the ``serve`` subcommand. ``--checkpoint-dir D`` writes
+spoke. ``serve`` starts the persistent service (serve/: ``python -m
+mpisppy_tpu_torch serve --port 0 --state-dir D --device cpu``). ``--checkpoint-dir D`` writes
 checkpoint bundles into D and ``--resume-from D`` resumes a wheel from
 the newest of them (ckpt/).
 
@@ -364,9 +365,10 @@ def main(argv=None):
         from .obs.analyze import main as analyze_main
         return analyze_main(argv[1:])
     if argv and argv[0] == "serve":
-        raise NotImplementedError(
-            "the 'serve' subcommand is not ported yet (see ROADMAP.md "
-            "A15)")
+        # the persistent service (serve/): runs until SIGTERM/SIGINT or
+        # POST /shutdown
+        from .serve.manager import serve_main
+        return serve_main(argv[1:])
     args = make_parser().parse_args(argv)
     result = run(config_from_args(args))
     if result is not None:       # None: a follower rank of a mesh

@@ -82,6 +82,15 @@ def _atomic_write_bytes(path: str, data: bytes):
     os.replace(tmp, path)
 
 
+def atomic_write_json(path: str, obj, indent=1):
+    """One JSON document under the tmp+``os.replace`` contract — the
+    durability pattern of this package, exported so its consumers
+    (serve request records, group files, the endpoint file) share one
+    implementation instead of hand-rolling the sequence."""
+    _atomic_write_bytes(path,
+                        (json.dumps(obj, indent=indent) + "\n").encode())
+
+
 def atomic_savez(path: str, **arrays):
     """``np.savez`` with the tmp+rename contract — and WITHOUT savez's
     implicit ``.npz`` suffix games (the file lands at exactly
@@ -120,6 +129,14 @@ def validate_state_arrays(d, keys=STATE_KEYS) -> dict:
 
 def _bundle_name(iteration: int, seq: int) -> str:
     return f"{_BUNDLE_PREFIX}{int(iteration):08d}-{int(seq):04d}"
+
+
+def bundle_seq(name: str) -> int:
+    """The capture sequence of a bundle directory name (0 for any other
+    name)."""
+    parts = name[len(_BUNDLE_PREFIX):].split("-") \
+        if name.startswith(_BUNDLE_PREFIX) else []
+    return int(parts[1]) if len(parts) == 2 and parts[1].isdigit() else 0
 
 
 def write_bundle(ckpt_dir: str, hub_arrays: dict, meta: dict,
@@ -276,3 +293,32 @@ def load_bundle(path: str, fingerprint: str | None = None):
                    for fn in manifest.get("spoke_files") or []
                    if os.path.isfile(os.path.join(path, fn))}
     return manifest, hub_arrays, spoke_paths
+
+
+def file_sha256(path: str, chunk: int = 1 << 16) -> str:
+    """Streaming sha256 of one file (chunked — bundle members can be
+    large and the migration transfer verifies them incrementally)."""
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        while True:
+            b = f.read(chunk)
+            if not b:
+                break
+            h.update(b)
+    return h.hexdigest()
+
+
+def transfer_manifest(bundle_dir: str) -> dict:
+    """``{name: {"size", "sha256"}}`` over every member of one bundle
+    dir — the wire-integrity half of a live migration offer
+    (serve/migrate): the receiver verifies each streamed member
+    against this BEFORE the load_bundle semantic gates run, so a torn
+    transfer is refused at the byte layer with a reasoned abort
+    instead of surfacing as a mysterious npz parse error."""
+    out = {}
+    for fn in sorted(os.listdir(bundle_dir)):
+        fp = os.path.join(bundle_dir, fn)
+        if os.path.isfile(fp):
+            out[fn] = {"size": os.path.getsize(fp),
+                       "sha256": file_sha256(fp)}
+    return out

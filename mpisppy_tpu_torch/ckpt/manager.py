@@ -14,7 +14,11 @@ iterations — nothing is added to the solve path.
 the hub engine's (W, x̄, x̄², ρ, iter) through the same
 pad/placement/invalidation path the wxbar warm start uses, and seed
 the hub's monotone best-bound ledger through the ingest-validated
-updates. A rejected bundle books ``ckpt.rejected.<reason>`` + a
+updates. A wheel resumed into a checkpoint directory names its bundles
+on from the resumed bundle (:meth:`CheckpointManager.resumed_from`), so
+retention keeps them and ``LATEST`` resolves to them (the JAX package
+names them from the engine's iteration, which restarts at 0, so its
+retention deletes them at once). A rejected bundle books ``ckpt.rejected.<reason>`` + a
 ``ckpt.resume_rejected`` event and the wheel cold-starts — corruption
 degrades, it never crashes.
 """
@@ -22,6 +26,7 @@ degrades, it never crashes.
 from __future__ import annotations
 
 import math
+import os
 import threading
 import time
 
@@ -68,6 +73,11 @@ class CheckpointManager:
         self.keep = _DEF_KEEP if keep is None else int(keep)
         self.fingerprint = fingerprint
         self._seq = 0
+        # iterations of the runs this wheel resumed (resumed_from); the
+        # engine's own _iter restarts at 0 in ph_main, so a bundle's
+        # iteration is the base plus it once the engine counts again
+        self._iter_base = 0
+        self._counting = True
         self._last_capture = 0.0       # monotonic; 0 = never
         self.last_bundle = None
         self.last_iter = None
@@ -81,8 +91,37 @@ class CheckpointManager:
         # finalize capture runs after the loop exits regardless.
         self._capture_lock = threading.Lock()
 
+    def resumed_from(self, manifest: dict, path: str):
+        """Name this wheel's bundles on from a resumed bundle: each
+        capture's iteration is the resumed ``iter`` plus the engine's
+        count, and the capture sequence continues above every bundle
+        in this directory and above the resumed one. Bundle names then
+        sort after the predecessor's, so ``_prune`` keeps the new ones
+        and the ``LATEST`` fallback finds them. The engine's ``_iter``
+        is left alone: convergers, the fixer and iteration limits
+        count from it."""
+        self._iter_base = int(manifest.get("iter") or 0)
+        self._counting = False
+        names = [os.path.basename(path)] + _bundle._bundle_dirs(
+            self.ckpt_dir)
+        self._seq = max([self._seq] + [_bundle.bundle_seq(n)
+                                       for n in names])
+
+    def _iteration(self, opt) -> int:
+        """The capture's iteration. Until the hub's first termination
+        check after a resume, the engine runs the resumed wheel's warm
+        iteration 0 and its ``_iter`` still holds the installed value:
+        the state is the resumed bundle's iteration. From that check on
+        (ph_main has reset ``_iter``) it is the base plus ``_iter``."""
+        if not self._counting:
+            return self._iter_base
+        return self._iter_base + int(getattr(opt, "_iter", 0))
+
     def maybe_capture(self, force=False, reason="interval"):
         if not force:
+            # only the hub's termination check captures unforced: the
+            # engine counts this run's iterations from here on
+            self._counting = True
             now = time.monotonic()
             if self.interval <= 0 \
                     or now - self._last_capture < self.interval:
@@ -107,6 +146,7 @@ class CheckpointManager:
         t0 = time.perf_counter()
         try:
             arrays = hub_state_arrays(opt)
+            arrays["iter"] = np.asarray(self._iteration(opt))
             self._seq += 1
             meta = {
                 "fingerprint": self.fingerprint,
@@ -191,6 +231,8 @@ def resume_hub(hub, path, fingerprint=None):
         return None
     opt._warm_started = True
     opt._warm_started_xbar = True
+    if getattr(hub, "ckpt", None) is not None:
+        hub.ckpt.resumed_from(manifest, _bundle.resolve_bundle(path))
     # seed the monotone best-bound ledger through the SAME validation
     # ingested bounds pass: non-finite refuses inside the
     # update; implausible magnitudes refuse here

@@ -386,7 +386,10 @@ class PHBase(SPBase):
         # ADMM block launches of plans already dropped (the live plans
         # book their own; kernel_launches sums both)
         self._retired_launches = 0
-        # factor builds of a mode built before (_book_factorization)
+        # every factor build (_book_factorization): the serving layer's
+        # warm-bucket check reads its delta; refactorizations counts
+        # the builds of a mode built before
+        self.factor_builds = 0
         self.refactorizations = 0
         self._factor_keys_built = set()
         self.rho_setter = rho_setter
@@ -633,10 +636,12 @@ class PHBase(SPBase):
         return self._factors[key]
 
     def _book_factorization(self, key):
-        """Count a factor build of a mode built before (a rho change or
-        a compaction made the old one stale): on the block path each
-        costs a new explicit (n, n) inverse. ``key`` None books a
-        compacted build, always a re-factorization."""
+        """Count a factor build (``factor_builds``) and, for a mode
+        built before (a rho change or a compaction made the old one
+        stale), a re-factorization: on the block path each costs a new
+        explicit (n, n) inverse. ``key`` None books a compacted build,
+        always a re-factorization."""
+        self.factor_builds += 1
         if key is not None and key not in self._factor_keys_built:
             self._factor_keys_built.add(key)
             return

@@ -73,7 +73,7 @@ KNOWN_OPTIONS = (*_DEFAULTS, "crossed_bound_tol")
 class WheelDeadline:
     """The watchdog timer half of the supervisor, standalone — for
     wheels with no spoke processes to supervise (the serving layer's
-    in-process hub-only wheels, mpisppy_tpu/serve). Arms a daemon
+    in-process hub-only wheels, serve/). Arms a daemon
     timer that fires the hub's once-guarded :meth:`Hub.fire_watchdog`
     if the wheel outlives its deadline, even when an iteration wedges
     and the hub never reaches another termination check — exactly

@@ -163,6 +163,13 @@ def counters_snapshot() -> dict:
     return r.metrics.counters_snapshot() if r is not None else {}
 
 
+def counter_value(name) -> float:
+    """One counter's value (0 when telemetry is disabled or the counter
+    was never booked)."""
+    r = _REC
+    return r.metrics.counter_get(name) if r is not None else 0
+
+
 def histogram_snapshot(name) -> dict | None:
     """Snapshot of one histogram (None when disabled or never
     observed) — the hub's bound-flow status reads staleness tails

@@ -859,9 +859,10 @@ def checkpoint_summary(run: Run) -> dict | None:
 
 
 def serving_summary(run: Run) -> dict | None:
-    """Serving-layer activity (mpisppy_tpu/serve, doc/serving.md):
+    """Serving-layer activity (serve/, either package's service):
     request admission/outcome totals, warm-cache hit ratio, the batch
-    occupancy histogram, and per-bucket compile counts. None when the
+    occupancy histogram, and per-bucket compile counts (in the port's
+    service, its kernel and factor builds). None when the
     run never served — the section only renders for serve-process
     telemetry dirs."""
     tot = {}

@@ -10,7 +10,8 @@ Cylinder threads may reach their first launch together, so building
 and loading run under one thread lock; the processes of a process
 wheel may too, so the build also runs under a file lock in the build
 directory (``file_lock``), and each build is renamed into place.
-Each build that runs is booked as a ``kernel.build`` telemetry event.
+Each build that runs is booked as a ``kernel.build`` telemetry event
+and counted in ``BUILDS``.
 """
 
 from __future__ import annotations
@@ -37,6 +38,9 @@ _LIBS: dict = {}
 _LOCK = threading.Lock()
 # per-source build record: {"seconds": float, "log": str (ptxas report)}
 BUILD_INFO: dict = {}
+# nvcc builds run by this process (each one a ``kernel.build`` event):
+# the serving layer's warm-bucket check reads its delta
+BUILDS = 0
 
 
 def _nvcc() -> str:
@@ -95,6 +99,8 @@ def _build_all_locked() -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src.name}:\n{log}")
         os.replace(tmp, lib)
+        global BUILDS
+        BUILDS += 1
         # the port's one compile of a run (no jit): a telemetry event,
         # outside analyze's compile ledger
         obs.event("kernel.build", {"source": src.name,

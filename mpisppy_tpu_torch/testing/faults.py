@@ -66,9 +66,15 @@ Hub-side plans (the ``"hub"`` key) are installed by
 var is set — same explicit-activation contract as the spoke side: the
 clean path never imports this module.
 
-Serve-side plans (the ``"serve"`` key) target the serving process:
-they are validated here as in the JAX package, and their hooks come
-with the serving layer (ROADMAP.md A15).
+Serve-side plans (the ``"serve"`` key) target the SERVING process
+(serve/manager): ``kill``/``preempt`` die at the Nth wheel launch or on
+a timer; ``wedge_wheel`` sleeps the Nth wheel for ``seconds`` — past
+its deadline, the WheelDeadline watchdog fires exactly as for an
+organically hung iteration; ``tear_transfer`` truncates the Nth
+migration bundle member mid-stream (the receiver's sha256 gate refuses
+it); ``refuse_peer``/``timeout_peer`` make this host's receiver
+endpoint refuse or stall the Nth incoming offer. Installed by
+``serve_main`` under the same env var (:class:`ServeFaultInjector`).
 """
 
 from __future__ import annotations
@@ -76,6 +82,7 @@ from __future__ import annotations
 import json
 import os
 import signal
+import threading
 import time
 
 import numpy as np
@@ -315,3 +322,127 @@ def install_hub_faults(hub, spec):
 
     hub.determine_termination = _check
     return inj
+
+
+class ServeFaultInjector:
+    """The serving-process fault machine (the plan's ``"serve"`` key).
+
+    Counted triggers are 1-based like the spoke side: ``at_wheel``
+    fires on the Nth wheel launch, ``at_transfer`` on the Nth outgoing
+    migration bundle member, ``at_offer`` on the Nth INCOMING
+    ``/migrate/offer``; ``after_s`` arms a timer from
+    :meth:`start_timers`. Each spec fires at most once. Installed by
+    ``serve_main`` under the MPISPPY_TPU_FAULT_PLAN env var — the
+    clean serving path never imports this module (tests assert it)."""
+
+    def __init__(self, specs, seed=0):
+        self.specs = list(specs)
+        self.seed = int(seed)
+        self._fired = set()
+        self._lock = threading.Lock()
+        self.n_wheels = 0
+        self.n_transfers = 0
+        self.n_offers = 0
+
+    @classmethod
+    def from_spec(cls, spec):
+        plan = validate_plan(_load_spec(spec))
+        specs = plan.get("serve") or []
+        if not specs:
+            return None
+        return cls(specs, seed=plan.get("seed", 0))
+
+    @classmethod
+    def from_env(cls):
+        spec = os.environ.get("MPISPPY_TPU_FAULT_PLAN")
+        return cls.from_spec(spec) if spec else None
+
+    def _die(self):
+        os.kill(os.getpid(), signal.SIGKILL)
+        os._exit(137)           # unreachable unless SIGKILL is blocked
+
+    def _preempt(self):
+        os.kill(os.getpid(), signal.SIGTERM)
+
+    def _take(self, i) -> bool:
+        """Claim spec ``i`` (once-only, thread-safe: wheel workers and
+        HTTP handler threads consult the same injector)."""
+        with self._lock:
+            if i in self._fired:
+                return False
+            self._fired.add(i)
+            return True
+
+    def start_timers(self):
+        """Arm daemon timers for ``after_s`` kill/preempt specs — the
+        process-level faults that must fire even while the service is
+        idle (no wheel to count)."""
+        for i, s in enumerate(self.specs):
+            if s["action"] not in ("kill", "preempt"):
+                continue
+            delay = s.get("after_s")
+            if delay is None:
+                continue
+
+            def _fire(i=i, s=s):
+                if self._take(i):
+                    (self._die if s["action"] == "kill"
+                     else self._preempt)()
+
+            t = threading.Timer(float(delay), _fire)
+            t.daemon = True
+            t.start()
+        return self
+
+    def on_wheel_start(self):
+        """Called by the wheel worker right before ``hub.main()``:
+        counted kill/preempt/wedge faults. ``wedge_wheel`` sleeps here
+        with the WheelDeadline watchdog already armed — the wedge is
+        indistinguishable from a hung iteration, which is the point."""
+        with self._lock:
+            self.n_wheels += 1
+            n = self.n_wheels
+        for i, s in enumerate(self.specs):
+            at = s.get("at_wheel")
+            if at is None or n != int(at) or not self._take(i):
+                continue
+            if s["action"] == "kill":
+                self._die()
+            elif s["action"] == "preempt":
+                self._preempt()
+            elif s["action"] == "wedge_wheel":
+                time.sleep(float(s.get("seconds", 30.0)))
+
+    def on_transfer(self) -> bool:
+        """Called by the donor's MigrationClient per outgoing bundle
+        member; True = tear THIS member (truncate mid-stream with the
+        full Content-Length still promised — the receiver's sha256
+        gate refuses it, exercising the retry/abort path)."""
+        with self._lock:
+            self.n_transfers += 1
+            n = self.n_transfers
+        for i, s in enumerate(self.specs):
+            if s["action"] != "tear_transfer":
+                continue
+            at = s.get("at_transfer")
+            if at is not None and n == int(at) and self._take(i):
+                return True
+        return False
+
+    def on_offer(self):
+        """Called by the receiver per incoming ``/migrate/offer`` ->
+        ``(verdict, sleep_seconds)``: ``("refuse", 0)`` rejects the
+        handoff with a reasoned 4xx, ``(None, s)`` stalls the reply so
+        the donor's per-transfer deadline machinery takes over."""
+        with self._lock:
+            self.n_offers += 1
+            n = self.n_offers
+        for i, s in enumerate(self.specs):
+            at = s.get("at_offer")
+            if at is None or n != int(at):
+                continue
+            if s["action"] == "refuse_peer" and self._take(i):
+                return "refuse", 0.0
+            if s["action"] == "timeout_peer" and self._take(i):
+                return None, float(s.get("seconds", 20.0))
+        return None, 0.0

@@ -460,6 +460,90 @@ class RunConfig:
         return asdict(self)
 
 
+@dataclass
+class ServeConfig:
+    """The serving layer's surface (``python -m mpisppy_tpu_torch
+    serve``, serve/). Like the rest of this module it needs no device:
+    the HTTP/queue plane validates it without one.
+    """
+    state_dir: str = ""
+    host: str = "127.0.0.1"          # loopback default, like status_host
+    port: int = 8765                 # 0 = ephemeral (serve.json records it)
+    # wheel workers: concurrent wheels; same-bucket wheels additionally
+    # serialize on the warm engine lease (serve/cache)
+    max_wheels: int = 1
+    queue_limit: int = 64            # bounded admission (full = 429)
+    # scenario-axis batcher: wait up to batch_window seconds for
+    # same-bucket stragglers, stack at most batch_max requests into one
+    # wheel (1 disables coalescing)
+    batch_window: float = 0.25
+    batch_max: int = 8
+    cache_buckets: int = 8           # warm-cache LRU capacity
+    checkpoint_interval: float = 5.0  # per-wheel bundle cadence
+    default_deadline: float | None = None   # per-request SLO seconds
+    # terminal request records (and their ckpt namespaces + stale
+    # group files) are swept at startup once older than this — the
+    # request-store twin of checkpoint_keep retention. Results remain
+    # durable for the whole window; a production service must not
+    # accrete one json per request forever.
+    request_retention: float = 7 * 24 * 3600.0
+    telemetry_dir: str | None = None
+    # fleet (serve/migrate): peer base URLs this host may hand live
+    # wheels to (empty = solo host, SIGTERM stays bundle-and-exit);
+    # per-transfer wall-clock budget + per-call retry attempts for one
+    # handoff; and the poison-pill bound — a request re-admitted by
+    # startup recovery more than max_recoveries times quarantines
+    # (settles failed) instead of crash-looping the service forever.
+    peers: tuple = ()
+    migrate_deadline: float = 60.0
+    migrate_retries: int = 3
+    max_recoveries: int = 3
+    # the device of every engine the service builds: None = the CUDA
+    # device (the service raises without one), "cpu" runs on the CPU
+    # (utils/runtime.resolve_device)
+    device: str | None = None
+
+    def validate(self):
+        if not self.state_dir:
+            raise ValueError("serve needs a state_dir (durable request "
+                             "records + ckpt bundles live there)")
+        if not (0 <= int(self.port) <= 65535):
+            raise ValueError("port must be in [0, 65535] (0 = ephemeral)")
+        if self.max_wheels < 1:
+            raise ValueError("max_wheels must be >= 1")
+        if self.queue_limit < 1:
+            raise ValueError("queue_limit must be >= 1")
+        if self.batch_window < 0:
+            raise ValueError("batch_window must be >= 0 seconds")
+        if self.batch_max < 1:
+            raise ValueError("batch_max must be >= 1")
+        if self.cache_buckets < 1:
+            raise ValueError("cache_buckets must be >= 1")
+        if self.checkpoint_interval <= 0:
+            raise ValueError("checkpoint_interval must be positive")
+        if self.default_deadline is not None and self.default_deadline <= 0:
+            raise ValueError("default_deadline must be positive seconds")
+        if self.request_retention <= 0:
+            raise ValueError("request_retention must be positive seconds")
+        for p in self.peers:
+            if not str(p).strip():
+                raise ValueError("peers must be non-empty host[:port] "
+                                 "or http:// base URLs")
+        if self.migrate_deadline <= 0:
+            raise ValueError("migrate_deadline must be positive seconds")
+        if self.migrate_retries < 1:
+            raise ValueError("migrate_retries must be >= 1")
+        if self.max_recoveries < 1:
+            raise ValueError("max_recoveries must be >= 1")
+        if self.device is not None and not str(self.device).strip():
+            raise ValueError("device must be None (the CUDA device) or "
+                             "a torch device string such as 'cpu'")
+        return self
+
+    def to_dict(self) -> dict:
+        return asdict(self)
+
+
 def config_from_dict(d: dict) -> RunConfig:
     """Inverse of RunConfig.to_dict() (for process workers)."""
     d = dict(d)

@@ -107,7 +107,15 @@ def test_every_module_imports_with_jax_poisoned():
               "mpisppy_tpu_torch.ckpt.spoke_state",
               "mpisppy_tpu_torch.extensions.wxbar_io",
               "mpisppy_tpu_torch.testing",
-              "mpisppy_tpu_torch.testing.faults"):
+              "mpisppy_tpu_torch.testing.faults",
+              # serving: the service plane, migration and the manager
+              "mpisppy_tpu_torch.serve",
+              "mpisppy_tpu_torch.serve.batch",
+              "mpisppy_tpu_torch.serve.cache",
+              "mpisppy_tpu_torch.serve.http",
+              "mpisppy_tpu_torch.serve.manager",
+              "mpisppy_tpu_torch.serve.migrate",
+              "mpisppy_tpu_torch.serve.queue"):
         assert m in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"

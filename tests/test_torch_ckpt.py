@@ -243,6 +243,61 @@ def test_manager_capture_and_resume_roundtrip(tmp_path, mem_obs):
     assert evs and evs[-1]["reason"] == "fingerprint_mismatch"
 
 
+def test_resumed_wheel_keeps_its_bundles_in_its_own_directory(tmp_path,
+                                                              mem_obs):
+    """A wheel resumed into its own checkpoint directory keeps what it
+    captures there: ``keep`` bundles written by the JAX package
+    (iterations 5, 10, 15), a port hub resumed from the directory and
+    checkpointing into it, one capture. The JAX package names that
+    capture from the engine's restarted iteration and its retention
+    deletes it at once; the port names it on from the resumed bundle,
+    so it survives, LATEST and both packages' ``latest_bundle`` resolve
+    to it, both packages load it, and the JAX-written predecessors
+    still load."""
+    from mpisppy_tpu.ckpt import bundle as jax_bundle
+    d = str(tmp_path)
+    keep = 3
+    ph = make_ph(iters=1)
+    S, K = ph.batch.S, ph.batch.K
+    for it in (5, 10, 15):
+        arrays = _hub_arrays(S=S, K=K, it=it)
+        jax_bundle.write_bundle(d, arrays, {"fingerprint": "fp"},
+                                iteration=it, seq=it // 5, keep=keep)
+    ph.ph_main(finalize=False)
+    hub = Hub(ph, spokes=[], options={"checkpoint_dir": d,
+                                      "checkpoint_keep": keep,
+                                      "resume_from": d,
+                                      "checkpoint_fingerprint": "fp"})
+    assert ph._iter == 15          # the installed bundle's iteration
+    # the engine runs its warm iteration 0 and ph_main's reset; at
+    # iteration 1 the hub's termination check captures (its first
+    # interval capture): iteration 15 + 1, sequence 3 + 1
+    ph._iter = 1
+    path = hub.ckpt.maybe_capture()
+    assert path is not None and os.path.isdir(path)
+    name = os.path.basename(path)
+    assert name == bundle._bundle_name(16, 4)
+    assert bundle.latest_bundle(d) == path
+    assert jax_bundle.latest_bundle(d) == path
+    assert open(os.path.join(d, bundle.LATEST)).read().strip() == name
+    manifest, arrays, _ = bundle.load_bundle(d, fingerprint="fp")
+    assert manifest["iter"] == arrays["iter"] == 16
+    np.testing.assert_array_equal(arrays["W"], to_host(ph.W))
+    jm, ja, _ = jax_bundle.load_bundle(d, fingerprint="fp")
+    assert jm["iter"] == 16 and ja["iter"] == 16
+    # retention kept the newest ``keep``: the capture and the two
+    # newest JAX-written predecessors, which still load
+    names = sorted(n for n in os.listdir(d) if n.startswith("bundle-"))
+    assert names == [bundle._bundle_name(10, 2),
+                     bundle._bundle_name(15, 3), name]
+    for it, seq in ((10, 2), (15, 3)):
+        m, a, _ = bundle.load_bundle(
+            os.path.join(d, bundle._bundle_name(it, seq)),
+            fingerprint="fp")
+        assert m["iter"] == a["iter"] == it
+    assert ph._iter == 1           # the engine's own count is untouched
+
+
 def test_resume_refuses_implausible_bounds_but_keeps_state(tmp_path,
                                                            mem_obs):
     d = str(tmp_path)

@@ -558,6 +558,41 @@ def _run_a14_streamed_case(argv, tmp_path, capsys):
         assert "checkpoint resume: iter 2" in out
 
 
+def _run_a15_streamed_case(argv, tmp_path):
+    import time
+    from mpisppy_tpu_torch.__main__ import main
+    from mpisppy_tpu_torch.serve.batch import bucket_key
+    from test_torch_wheel import http_json, serve_in_thread
+    with pytest.raises(SystemExit) as e:
+        main(argv + ["--port", "0", "--state-dir", str(tmp_path / "x")])
+    assert e.value.code == 2
+    resident = {"model": "uc", "num_scens": 4, "model_kwargs": UC_KW,
+                "algo": {"max_iterations": 2, "default_rho": 50.0}}
+    streamed = dict(resident, algo=dict(resident["algo"],
+                                        scenario_source="streamed"))
+    assert bucket_key(streamed) != bucket_key(resident)
+    t, base, rc = serve_in_thread(str(tmp_path / "state"))
+    try:
+        ids = [http_json(base + "/solve", p)["request_id"]
+               for p in (streamed, resident)]
+        recs = {}
+        t0 = time.time()
+        while time.time() - t0 < 180 and len(recs) < 2:
+            for rid in ids:
+                rec = http_json(f"{base}/result/{rid}")
+                if rec["status"] in ("done", "failed"):
+                    recs[rid] = rec
+            time.sleep(0.1)
+        bad, good = recs[ids[0]], recs[ids[1]]
+        assert bad["status"] == "failed"
+        assert "subproblem_chunk" in bad["error"]
+        assert good["status"] == "done", good
+    finally:
+        http_json(base + "/shutdown", {})
+        t.join(timeout=60)
+    assert rc == [0]
+
+
 @pytest.mark.parametrize("argv,item", [
     (_STREAMED + ["--telemetry-dir", "t"], "A13"),
     (_STREAMED + ["--checkpoint-dir", "c"], "A14"),
@@ -565,7 +600,14 @@ def _run_a14_streamed_case(argv, tmp_path, capsys):
     (["serve", "--scenario-source", "streamed"], "A15")])
 def test_cli_refuses_what_streaming_still_lacks(argv, item, tmp_path,
                                                 capsys):
-    """Streamed serve tenants (A15) refuse, naming their item.
+    """Serving (A15) is ported: the streamed source is a request's
+    ``algo.scenario_source`` there, not a flag of the ``serve``
+    subcommand, which refuses the run CLI's ``--scenario-source`` as a
+    usage error; the case then starts ``serve --device cpu``, where a
+    streamed request buckets apart from a resident one and settles
+    ``failed`` with the engine's reason (the request schema carries no
+    ``subproblem_chunk``, the chunked loop a streamed source needs)
+    while the resident request of the same model completes.
     Streaming's telemetry and its analyze section (A13) are ported: that
     case runs the command line and reads the streaming section and the
     records' ``stream.*`` counter deltas back. A streamed wheel's
@@ -575,6 +617,9 @@ def test_cli_refuses_what_streaming_still_lacks(argv, item, tmp_path,
     from mpisppy_tpu_torch.__main__ import main
     if item == "A14":
         _run_a14_streamed_case(argv, tmp_path, capsys)
+        return
+    if item == "A15":
+        _run_a15_streamed_case(argv, tmp_path)
         return
     if item == "A13":
         tdir = str(tmp_path / "t")

@@ -217,12 +217,18 @@ def test_cli_refuses_what_is_not_ported(argv, item, tmp_path, capsys,
     same command line (with a short run and a fresh directory for
     ``t``) and check what it writes. Checkpoints (A14) are ported: that
     case runs the command line with a fresh directory for ``c``, reads
-    its final bundle back, and resumes a second run from it."""
+    its final bundle back, and resumes a second run from it. Serving
+    (A15) is ported: that case starts ``serve --device cpu`` on an
+    ephemeral port, has it answer one farmer request over HTTP and shuts
+    it down over HTTP."""
     if item == "A13":
         _run_a13_case(argv, tmp_path, capsys)
         return
     if item == "A14":
         _run_a14_case(argv, tmp_path, capsys)
+        return
+    if item == "A15":
+        _run_a15_case(argv, tmp_path)
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         main(argv + ["--device", "cpu"] if argv[0] not in ("analyze",
@@ -233,6 +239,58 @@ def test_cli_refuses_what_is_not_ported(argv, item, tmp_path, capsys,
 _SHORT_RUN = ["--num-scens", "3", "--default-rho", "10",
               "--max-iterations", "3", "--convthresh", "-1",
               "--subproblem-max-iter", "2000", "--device", "cpu"]
+
+
+def serve_in_thread(state_dir, extra=()):
+    """``python -m mpisppy_tpu_torch serve --device cpu`` run by ``main``
+    in a thread on an ephemeral port; returns (thread, base URL, the
+    exit code box). POST /shutdown ends it."""
+    import json
+    import os
+    rc = []
+    t = threading.Thread(target=lambda: rc.append(main(
+        ["serve", "--port", "0", "--state-dir", state_dir, "--device",
+         "cpu", "--batch-window", "0.05", *extra])), daemon=True)
+    t.start()
+    ep = os.path.join(state_dir, "serve.json")
+    t0 = time.time()
+    while time.time() - t0 < 120 and not rc:
+        try:
+            port = json.load(open(ep, encoding="utf-8"))["port"]
+            return t, f"http://127.0.0.1:{port}", rc
+        except (OSError, ValueError, KeyError):
+            time.sleep(0.05)
+    raise RuntimeError(f"serve did not come up (exit {rc})")
+
+
+def http_json(url, payload=None):
+    import json
+    import urllib.request
+    req = urllib.request.Request(
+        url, data=None if payload is None else json.dumps(payload).encode())
+    with urllib.request.urlopen(req, timeout=30) as r:
+        return json.loads(r.read().decode())
+
+
+def _run_a15_case(argv, tmp_path):
+    t, base, rc = serve_in_thread(str(tmp_path / "state"))
+    try:
+        rid = http_json(base + "/solve", {
+            "model": "farmer", "num_scens": 3,
+            "algo": {"max_iterations": 5}})["request_id"]
+        t0 = time.time()
+        while time.time() - t0 < 120:
+            rec = http_json(f"{base}/result/{rid}")
+            if rec["status"] in ("done", "failed"):
+                break
+            time.sleep(0.1)
+        assert rec["status"] == "done", rec
+        assert rec["result"]["objective"] >= EF_OBJ - 1.0
+        assert rec["result"]["wheel"]["cache_hit"] is False
+    finally:
+        http_json(base + "/shutdown", {})
+        t.join(timeout=60)
+    assert rc == [0]
 
 
 def _run_a14_case(argv, tmp_path, capsys):
